@@ -1,0 +1,142 @@
+"""SearchEngine — pluggable batched floor search over one PI shard.
+
+Counterpart of ``repro.core.engine``.  Every traversal consumer
+(``lookup``, ``execute``, ``traverse``) asks the engine for positions, and
+the engine dispatches one of two backends:
+
+================  ==========================================================
+backend           what runs
+================  ==========================================================
+``torch``         the descent and a ``torch.searchsorted`` pending probe in
+                  stock PyTorch ops (the JAX package's ``xla`` backend).
+``cuda``          the hand-written kernels ``kernels.pi_search.pi_probe`` /
+                  ``pi_search``.  On a CPU tensor the wrappers run their
+                  plain versions, as ``pallas-interpret`` runs the Pallas
+                  kernels on a CPU.  The default.
+================  ==========================================================
+
+The primitive is ``probe``: one batched call that returns the
+storage-layer floor slot, the pending-buffer insertion point and the key
+match flags for a whole query batch; ``cuda`` computes all three in one
+kernel launch.  The backends agree bit for bit.  Liveness (tombstones,
+``pn``) is the caller's business.  Range aggregation is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.kernels.pi_search import (FLAG_MAIN_MATCH, FLAG_PENDING_HIT,
+                                           gather_fill, pi_probe, pi_search,
+                                           sentinel_for)
+
+BACKENDS = ("torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class Probe:
+    """Per-query result of the fused floor-search primitive.
+
+    ``pos`` is raw (−1 on underflow, or past the live region for sentinel
+    queries); ``ppos`` is clipped to the pending capacity.  ``p_hit`` is a
+    *key* match within the pending array — the caller still intersects it
+    with ``ppos < pn``.
+    """
+
+    pos: torch.Tensor         # (B,) int32 storage floor position, −1 = below
+    main_match: torch.Tensor  # (B,) bool  storage key at pos equals query
+    ppos: torch.Tensor        # (B,) int32 clipped pending insertion point
+    p_hit: torch.Tensor       # (B,) bool  pending key at ppos equals query
+
+
+class SearchEngine:
+    """Backend-selectable descent over index layer + pending buffer."""
+
+    def __init__(self, backend: str = "cuda", tile_q: int = 256):
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown search backend {backend!r}; pick one of {BACKENDS}")
+        self.backend = backend
+        self.tile_q = tile_q
+
+    def __repr__(self):
+        return f"SearchEngine(backend={self.backend!r}, tile_q={self.tile_q})"
+
+    # -- primitives --------------------------------------------------------
+
+    def floor(self, index, q: torch.Tensor) -> torch.Tensor:
+        """Floor positions: largest i with keys[i] <= q, else −1."""
+        q = q.to(index.keys.dtype)
+        if self.backend == "cuda":
+            return pi_search(index.keys, q, fanout=index.config.fanout,
+                             tile_q=self.tile_q, levels=index.levels)
+        pos, underflow = self._descend_torch(index, q)
+        return torch.where(underflow, -1, pos)
+
+    def probe(self, index, q: torch.Tensor) -> Probe:
+        """Fused floor + pending probe for a whole batch (the hot path)."""
+        q = q.to(index.keys.dtype)
+        if self.backend == "cuda":
+            return self._probe_cuda(index, q)
+        return self._probe_torch(index, q)
+
+    # -- torch backend -----------------------------------------------------
+
+    def _descend_torch(self, index, q: torch.Tensor):
+        """Vectorized Alg. 2: descend level H→1, at each level compare the
+        F keys of the current entry's child group and take the rank."""
+        cfg = index.config
+        F = cfg.fanout
+        sent = sentinel_for(index.keys.dtype)
+
+        # top level: at most F entries -> one compare against the whole level
+        top = index.levels[-1] if cfg.num_levels else index.keys
+        rank = (top[None, :] <= q[:, None]).sum(1, dtype=torch.int32) - 1
+        pos = rank.clamp_min(0)
+        underflow = rank < 0
+
+        lanes = torch.arange(F, dtype=torch.int32, device=q.device)
+        for lvl in range(cfg.num_levels - 1, -1, -1):
+            arr = index.levels[lvl - 1] if lvl >= 1 else index.keys
+            child = pos[:, None].long() * F + lanes[None, :]
+            ck = gather_fill(arr, child, sent)
+            r = (ck <= q[:, None]).sum(1, dtype=torch.int32) - 1
+            pos = pos * F + r.clamp_min(0)
+        return pos, underflow
+
+    def _probe_torch(self, index, q: torch.Tensor) -> Probe:
+        pos, underflow = self._descend_torch(index, q)
+        pos = torch.where(underflow, -1, pos)
+        C = index.keys.shape[0]
+        main_match = (pos >= 0) & (index.keys[pos.clamp(0, C - 1).long()] == q)
+        PC = index.pkeys.shape[0]
+        ppos = torch.searchsorted(index.pkeys, q, out_int32=True)
+        ppos_c = ppos.clamp_max(PC - 1)
+        p_hit = (index.pkeys[ppos_c.long()] == q) & (ppos < PC)
+        return Probe(pos=pos, main_match=main_match, ppos=ppos_c, p_hit=p_hit)
+
+    # -- cuda backend ------------------------------------------------------
+
+    def _probe_cuda(self, index, q: torch.Tensor) -> Probe:
+        mpos, ppos, flags = pi_probe(
+            index.keys, index.pkeys, q, fanout=index.config.fanout,
+            tile_q=self.tile_q, levels=index.levels)
+        PC = index.pkeys.shape[0]
+        return Probe(
+            pos=mpos,
+            main_match=(flags & FLAG_MAIN_MATCH) > 0,
+            ppos=ppos.clamp_max(PC - 1),
+            p_hit=(flags & FLAG_PENDING_HIT) > 0,
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _make_engine(backend: str, tile_q: int) -> SearchEngine:
+    return SearchEngine(backend=backend, tile_q=tile_q)
+
+
+def get_engine(config) -> SearchEngine:
+    """The (memoized) engine a ``PIConfig`` selects via ``config.backend``."""
+    return _make_engine(config.backend, config.tile_q)

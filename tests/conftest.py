@@ -19,6 +19,8 @@ def pytest_configure(config):
     # module pattern keeps jax/numpy churn from breaking the tier-1 gate.
     config.addinivalue_line(
         "filterwarnings", "error::DeprecationWarning:repro")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason elsewhere")
 
 
 @pytest.fixture
