@@ -3,27 +3,43 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile WINDOWS]
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and drives
-one PI shard's point-op path at a real data size: 2^24 YCSB keys over a
-2^30 key space, capacity 2^25, pending capacity 2^22, fanout 8, windows of
-8192 operations (write ratio 0.5, zipf theta 0.9).  Phases:
+one PI shard at a real data size: 2^24 YCSB keys over a 2^30 key space,
+capacity 2^25, pending capacity 2^22, fanout 8, windows of 8192
+operations.  Phases:
 
 1. build the kernels and the index; print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, bit for
-   bit, at the main path's shapes, and time both with CUDA events;
-3. run the main path — windows through ``step_single``, a two-tier
-   ``rebuild`` (incremental), a ``repack``, then ``lookup`` and
-   ``traverse`` — with the ``cuda`` backend, check every result against
-   the ``RefIndex`` oracle, and run the same sequence again with the
-   ``torch`` backend, which must agree bit for bit;
-4. check that the main path launched every kernel.
+   bit, at the main paths' shapes, and time both: ``pi_probe`` and
+   ``pi_search`` on the fresh and the pending-filled index, ``pi_range``
+   on the fresh index and on the pending-filled one with deletes (storage
+   and pending tombstones), with YCSB-E scans, empty and inert lanes,
+   ranges below the minimum or up to INT_MAX - 1 and spans beyond the
+   ``max_span`` budget;
+3. the point-op path: windows (write ratio 0.5, zipf theta 0.9) through
+   ``step_single``, a two-tier ``rebuild`` (incremental), a ``repack``,
+   then ``lookup`` and ``traverse``, with the ``cuda`` backend, checked
+   against the ``RefIndex`` oracle and against the ``torch`` backend, bit
+   for bit;
+4. the serving path: a YCSB workload E stream (95 % scans of 1..100
+   records, 5 % inserts, zipf theta 0.9) through ``Dispatcher.run`` at
+   depth 1, every RANGE checked against an oracle of the pre-window state
+   and every point result against ``RefIndex``, and the same stream with
+   the ``torch`` backend, bit for bit; then a mixed stream (30 % scans,
+   write ratio 0.5) on an index with a small pending buffer, so that
+   rebuilds run inside the dispatcher, against the same oracles;
+5. check that each path launched its kernels: ``pi_probe`` and
+   ``pi_search`` on the point path, ``pi_probe`` once a window and
+   ``pi_range`` once a range-bearing window on the serving path.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
-so the script exits non-zero and prints no result; so does a machine
-without a CUDA card, or a directory without the rest of the repository.
+``--profile N`` adds device time by kernel over N point windows and N
+serving windows.  The line before the last is a JSON object with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Any
+failed check raises, so the script exits non-zero and prints no result;
+so does a machine without a CUDA card, or a directory without the rest of
+the repository.
 """
 from __future__ import annotations
 
@@ -48,7 +64,11 @@ SCALAR_OPS_PER_S = 67e12
 
 DEVICE = "cuda"
 N_KEYS = 1 << 24     # YCSB dataset size (paper: 2M..256M)
-WINDOWS = 32         # windows of 8192 operations on the main path
+WINDOWS = 32         # windows of 8192 operations on the point path
+SERVE_WINDOWS = 32   # windows' worth of YCSB-E arrivals through the dispatcher
+MIXED_WINDOWS = 16   # windows' worth of the mixed stream
+MIXED_PC = 1 << 14   # its pending capacity: rebuilds inside the run
+MAX_SPAN = 1024      # occupied-key budget of a RANGE
 ITERS = 200          # launches a kernel is timed over (plain version: 1/10)
 SEED = 0
 
@@ -80,16 +100,17 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_events(fn, iters: int):
+def device_events(fn, iters: int, operators: bool = True):
     """The device-side events (kernels, copies) of ``iters`` calls of
-    ``fn``, from ``torch.profiler``, and the CPU-side operators:
+    ``fn``, from ``torch.profiler``, and the CPU-side operators (none
+    unless ``operators``):
     ([(name, self device us, count)], [(operator, self device us, count)])."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if operators else [])) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -105,7 +126,7 @@ def device_ms(fn, iters: int, kernel: str | None = None) -> float:
     ``kernel``, or of all its device work.  Free of the host's launch
     overhead, which the CUDA-event time of a launch loop includes; that
     time is the fallback where the profiler sees no device activity."""
-    dev, _ = device_events(fn, iters)
+    dev, _ = device_events(fn, iters, operators=False)
     us = [t for name, t, _ in dev if kernel is None or kernel in name]
     if not us:
         log(f"[timing] the profiler saw no device time for "
@@ -147,11 +168,13 @@ def descent_touch(levels, storage, q, fanout):
     return nbytes, ops
 
 
-def lower_bound_touch(pending, q):
-    """(distinct pending bytes read by the branchless lower bound, compares)."""
+def bound_reads(pending, q, right=False):
+    """The pending slots the branchless bound reads for queries q (a flat
+    index tensor), its result, and its compares per query."""
     from repro_torch.kernels.pi_search import gather_fill, sentinel_for
     n = pending.numel()
     sent = sentinel_for(pending.dtype)
+    below = torch.le if right else torch.lt
     p2 = 1 << max(0, (n - 1).bit_length())
     count = torch.zeros_like(q, dtype=torch.int64)
     read = []
@@ -159,13 +182,61 @@ def lower_bound_touch(pending, q):
     while step:
         cand = count + step
         read.append(cand - 1)
-        count = torch.where(gather_fill(pending, cand - 1, sent) < q, cand,
-                            count)
+        count = torch.where(below(gather_fill(pending, cand - 1, sent), q),
+                            cand, count)
         step >>= 1
     read.append(count)
-    ppos = count + (gather_fill(pending, count, sent) < q)
-    read.append(ppos.clamp_max(n - 1))
-    return 4 * _unique(torch.cat(read), n), q.numel() * (len(read) + 1)
+    pos = (count + below(gather_fill(pending, count, sent), q)).clamp_max(n)
+    return torch.cat(read), pos, len(read)
+
+
+def lower_bound_touch(pending, q):
+    """(distinct pending bytes read by the branchless lower bound, compares)."""
+    n = pending.numel()
+    read, ppos, steps = bound_reads(pending, q)
+    read = torch.cat([read, ppos.clamp_max(n - 1)])
+    return 4 * _unique(read, n), q.numel() * (steps + 2)
+
+
+def range_touch(idx, tables, lo, hi, max_span):
+    """(distinct bytes pi_range reads and writes, compares, lanes whose
+    walk spends the whole budget) for this run's ranges.  Bytes: the
+    descent's groups and the floor's rank entry, the walked ranks'
+    dense2slot entries and slots' key/live/val entries (up to the first
+    key above hi or the budget), the two bounds' pending keys and prefix
+    entries, 16 B of bounds and outputs a lane.  Empty lanes (lo > hi)
+    read only their bounds."""
+    from repro_torch.kernels.pi_search import (gather_fill, pi_search_plain,
+                                               sentinel_for)
+    _, rank, d2s, _ = tables
+    keys, F = idx.keys, idx.config.fanout
+    C, PC = keys.numel(), idx.pkeys.numel()
+    act = lo <= hi
+    lo, hi = lo[act], hi[act]
+    nbytes, ops = descent_touch(idx.levels, keys, lo, F)
+    pos = pi_search_plain(keys, lo, fanout=F, levels=idx.levels).long()
+    nbytes += 4 * _unique(pos, C)
+    r0 = torch.where(pos >= 0, rank[pos.clamp(0, C - 1)].long(), 0)
+    r = r0.clamp_min(0)[:, None] + torch.arange(max_span, device=lo.device)
+    slot = gather_fill(d2s, r, C).long()
+    ks = gather_fill(keys, slot, sentinel_for(keys.dtype))
+    stop = (r >= C) | (slot >= C) | (ks > hi[:, None])
+    walked = (torch.cumsum(stop, 1) - stop.long() == 0) & (r < C)
+    read = walked & (slot < C)
+    gated = read & (ks >= lo[:, None]) & (ks <= hi[:, None])
+    nbytes += 4 * _unique(r[walked], C) + 4 * _unique(slot[read], C) + \
+        8 * _unique(slot[gated], C)
+    ops += 3 * int(walked.sum())
+    pend, prefix = [], []
+    for q, right in ((lo, False), (hi, True)):
+        reads, pos_p, steps = bound_reads(idx.pkeys, q, right)
+        pend.append(reads)
+        prefix.append(pos_p)
+        ops += q.numel() * (steps + 1)
+    nbytes += 4 * _unique(torch.cat(pend), PC) + \
+        8 * _unique(torch.cat(prefix), PC + 1)
+    return nbytes + 16 * act.numel(), ops, int((walked.sum(1) ==
+                                               max_span).sum())
 
 
 def bound(nbytes: int, ops: int):
@@ -263,6 +334,238 @@ def check_kernels(idx, q, tag, iters):
         f"{t['searchsorted_pending_ms']:.6f} ms")
     return dict(t, probe_err=probe_err, search_err=search_err,
                 probe_bound=probe_bound, search_bound=search_bound)
+
+
+def range_queries(rng, keys, n, key_space):
+    """(lo, hi) lanes: YCSB-E scans (1..100 records: spans of 1..6400 key
+    units at 2^24 keys over 2^30), empty ranges (lo > hi), inert lanes
+    (lo = sentinel, hi = 0), ranges from below the minimum, ranges up to
+    INT_MAX - 1 and spans far beyond the ``max_span`` budget."""
+    from repro_torch.kernels.pi_search import sentinel_for
+    top = sentinel_for(torch.int32) - 1
+    lo = np.concatenate([
+        rng.choice(keys, n // 2).astype(np.int64),
+        rng.integers(0, key_space, n // 4),
+        rng.integers(0, key_space, 256),                        # lo > hi
+        np.full(256, top + 1),                                  # inert
+        np.iinfo(np.int32).min + rng.integers(0, 1 << 20, 64),  # below min
+        rng.integers(key_space - (1 << 16), key_space, 64),     # to the top
+        rng.integers(0, key_space, 256)])                       # budget
+    m = lo.size - 896
+    hi = np.concatenate([
+        lo[:m] + rng.integers(1, 6401, m) - 1,
+        lo[m:m + 256] - rng.integers(1, 1 << 16, 256),
+        np.zeros(256, np.int64),
+        keys.min() + rng.integers(0, 1 << 16, 64),
+        np.full(64, top),
+        lo[m + 640:] + rng.integers(1 << 18, 1 << 22, 256)])
+    lo = np.concatenate([lo, rng.integers(0, key_space, n - lo.size)])
+    hi = np.concatenate([hi, lo[hi.size:] + rng.integers(0, 6400,
+                                                         n - hi.size)])
+    order = rng.permutation(n)
+    lo = np.clip(lo[order], np.iinfo(np.int32).min, top + 1)
+    hi = np.clip(hi[order], np.iinfo(np.int32).min, top)
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(DEVICE)
+                 for x in (lo, hi))
+
+
+def check_range_kernel(idx, lo, hi, tag, iters):
+    """pi_range against its plain version at these shapes, bit for bit;
+    device times of the kernel, of the plain version and of building the
+    tables; the bound."""
+    from repro_torch.core.engine import range_tables
+    from repro_torch.kernels import pi_range as KR
+    F = idx.config.fanout
+    tables = range_tables(idx)
+    live, rank, d2s, plive = tables
+    args = (idx.keys, live, idx.vals, rank, d2s, idx.pkeys, idx.pvals,
+            plive, lo, hi)
+
+    def kernel():
+        return KR.pi_range(*args, fanout=F, max_span=MAX_SPAN,
+                           levels=idx.levels)
+
+    def plain():
+        return KR.pi_range_plain(*args, fanout=F, max_span=MAX_SPAN,
+                                 levels=idx.levels)
+
+    def build_tables():
+        t = range_tables(idx)
+        return KR.pending_prefix(idx.pvals, t[3])
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    for name, a, b in zip(("count", "sum"), got, want):
+        assert torch.equal(a, b), f"pi_range {name} != plain ({tag})"
+    cnt = got[0]
+    n_tomb = int(idx.tomb.sum()), int((idx.ptomb & (torch.arange(
+        idx.ptomb.numel(), device=DEVICE) < idx.pn)).sum())
+    nbytes, ops, budget = range_touch(idx, tables, lo, hi, MAX_SPAN)
+    rb = bound(nbytes, ops)
+    plain_iters = max(iters // 10, 5)
+    t = dict(ms=device_ms(kernel, iters, "pi_range_kernel"),
+             call_ms=time_ms(kernel, iters),
+             plain_ms=device_ms(plain, plain_iters),
+             tables_ms=device_ms(build_tables, iters))
+    log(f"[kernels:{tag}] pi_range: B={lo.numel()} pn={int(idx.pn)} "
+        f"tombstones storage/pending {n_tomb}; empty lanes "
+        f"{int((lo > hi).sum())}; keys counted {int(cnt.sum())}, walks "
+        f"spending the budget {budget}; max_abs_err {err}; {nbytes} B "
+        f"touched")
+    log(f"[kernels:{tag}] pi_range: device {t['ms']:.6f} ms (per call with "
+        f"the host's launch {t['call_ms']:.6f} ms) | rank, dense2slot and "
+        f"prefix tables: device {t['tables_ms']:.6f} ms | plain version "
+        f"device {t['plain_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]}")
+    assert budget > 0 and int(cnt.sum()) > 0, "ranges too narrow"
+    return dict(t, err=err, bound=rb)
+
+
+class Oracle:
+    """The pre-window answer of every operation of a stream.
+
+    ``RefIndex`` gives the point results.  ``RefIndex.range`` sorts the
+    whole map on every call, far too slow at 2^24 keys, so ranges are
+    answered from the initial keys as a sorted array with int64 prefix
+    sums of their values, plus the same for the (few) keys the stream has
+    changed since: per changed key, its change in count and in value.
+    """
+
+    def __init__(self, base, k0, v0):
+        from repro_torch.core import RefIndex
+        self.ref = RefIndex(dict(base))
+        self.k0, self.v0 = k0, v0
+        self.p0 = np.concatenate([[0], np.cumsum(v0)])
+        self.delta = {}          # key -> (count change, value change)
+        self.dk = np.zeros(0, np.int64)
+        self.dc = self.ds = np.zeros(1, np.int64)
+
+    def _base(self, keys):
+        """(in the initial keys, initial value) per key."""
+        pos = np.minimum(np.searchsorted(self.k0, keys), self.k0.size - 1)
+        has = self.k0[pos] == keys
+        return has, np.where(has, self.v0[pos], 0)
+
+    def ranges(self, lo, hi):
+        """(count, int32-wrapped sum) of the live keys in [lo, hi]."""
+        cnt, sm = 0, 0
+        for k, c, v in ((self.k0, None, self.p0),
+                        (self.dk, self.dc, self.ds)):
+            a = np.searchsorted(k, lo, side="left")
+            b = np.maximum(np.searchsorted(k, hi, side="right"), a)
+            cnt = cnt + (b - a if c is None else c[b] - c[a])
+            sm = sm + v[b] - v[a]
+        return cnt, (sm + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+    def execute(self, ops, keys, vals):
+        """Apply a window's point ops; returns RefIndex's (found, val)."""
+        from repro_torch.core import DELETE, INSERT
+        res = self.ref.execute(ops, keys, vals)
+        wk = np.unique(keys[(ops == INSERT) | (ops == DELETE)]) \
+            .astype(np.int64)
+        if wk.size:
+            has, v0 = self._base(wk)
+            for k, h, v in zip(wk.tolist(), has.tolist(), v0.tolist()):
+                now = self.ref.data.get(k)
+                change = (int(now is not None) - h,
+                          (0 if now is None else now) - v)
+                if change == (0, 0):
+                    self.delta.pop(k, None)
+                else:
+                    self.delta[k] = change
+            self.dk = np.array(sorted(self.delta), np.int64)
+            ch = np.array([self.delta[k] for k in self.dk.tolist()],
+                          np.int64).reshape(-1, 2)
+            self.dc, self.ds = (np.concatenate([[0], np.cumsum(x)])
+                                for x in ch.T)
+        return (np.array([r is not None for r in res]),
+                np.array([0 if r is None else r for r in res], np.int64))
+
+    def live(self):
+        """The live (key, value) pairs, sorted by key."""
+        gone = np.isin(self.k0, self.dk)
+        k = np.concatenate([self.k0[~gone], self.dk])
+        v = np.concatenate([self.v0[~gone], np.array(
+            [self.ref.data.get(x, 0) for x in self.dk.tolist()], np.int64)])
+        keep = np.concatenate([np.ones((~gone).sum(), bool), np.array(
+            [x in self.ref.data for x in self.dk.tolist()], bool)])
+        order = np.argsort(k[keep], kind="stable")
+        return k[keep][order], v[keep][order]
+
+
+def check_stream(oracle, retired, tag):
+    """Every window in retirement order: its RANGE results against the
+    pre-window state, then its point results against ``RefIndex``."""
+    from repro_torch.core import RANGE
+    n_ranges = n_points = 0
+    for k, res in enumerate(retired):
+        w = res.window
+        occ = w.occupancy
+        ops, keys = w.ops[:occ], w.keys[:occ]
+        is_r = ops == RANGE
+        if is_r.any():
+            cnt, sm = oracle.ranges(keys[is_r], w.keys2[:occ][is_r])
+            assert np.array_equal(res.rcnt[:occ][is_r], cnt), \
+                f"{tag} window {k}: RANGE count != pre-window oracle"
+            assert np.array_equal(res.rsum[:occ][is_r], sm), \
+                f"{tag} window {k}: RANGE sum != pre-window oracle"
+            assert not res.rcnt[:occ][~is_r].any(), f"{tag} window {k}"
+            n_ranges += int(is_r.sum())
+        found, val = oracle.execute(ops, keys, w.vals[:occ])
+        assert np.array_equal(res.found[:occ][~is_r], found[~is_r]), \
+            f"{tag} window {k}: found != RefIndex"
+        assert np.array_equal(res.val[:occ][~is_r].astype(np.int64),
+                              val[~is_r]), f"{tag} window {k}: val != ref"
+        n_points += int((~is_r).sum())
+    return n_ranges, n_points
+
+
+def serve(idx, stream, batch, metrics=None):
+    """One stream through ``Dispatcher.run`` at depth 1 on the wall clock;
+    returns (dispatcher, retired windows, seconds)."""
+    from repro_torch.pipeline import Dispatcher, WindowConfig
+    disp = Dispatcher(idx, depth=1, max_span=MAX_SPAN, metrics=metrics,
+                      clock=time.perf_counter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if metrics is not None:
+        metrics.start(t0)
+    retired = disp.run(stream, WindowConfig(batch=batch),
+                       clock=time.perf_counter)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if metrics is not None:
+        metrics.stop(t1)
+    return disp, retired, t1 - t0
+
+
+def same_windows(a, b):
+    fields = ("found", "val", "rcnt", "rsum", "rebuilt",
+              "rebuilt_incremental", "pending_fill")
+    return len(a) == len(b) and all(
+        np.array_equal(getattr(x, f), getattr(y, f))
+        for x, y in zip(a, b) for f in fields)
+
+
+def profile_serving(idx, windows, window_ms, top=12):
+    """Device time by kernel and by operator over windows through
+    ``Dispatcher.submit`` (ranges + point execute), from ``torch.profiler``;
+    the busy share is over ``window_ms``, the unprofiled mean window."""
+    from repro_torch.pipeline import Dispatcher
+    disp = Dispatcher(idx, depth=1, max_span=MAX_SPAN)
+    it = iter(windows)
+    dev, ops = device_events(lambda: disp.submit(next(it)), len(windows) - 1)
+    disp.flush()
+    n = len(windows) - 1
+    busy = sum(t for _, t, _ in dev) / n / 1e3
+    log(f"[profile:serve] {n} windows: device {busy:.6f} ms a window, "
+        f"{100 * busy / window_ms:.2f}% of the unprofiled mean window "
+        f"{window_ms:.6f} ms")
+    for title, rows in (("kernel", dev), ("operator", ops)):
+        for name, t, count in sorted(rows, key=lambda r: -r[1])[:top]:
+            log(f"[profile:serve] {title} {t / n / 1e3:10.6f} ms a window "
+                f"({count / n:.1f}x) {name[:90]}")
 
 
 def run_main_path(idx0, batches, lookup_q):
@@ -383,6 +686,120 @@ def profile_windows(idx, batches, window_ms, top=12):
                 f"({count / n:.1f}x) {name[:90]}")
 
 
+def run_serving(args, idx0, cfg, keys_np, vals_np, ycfg, base):
+    """Phase 4: the YCSB-E and the mixed stream through ``Dispatcher.run``,
+    each checked against the pre-window oracle; the YCSB-E stream again
+    with the ``torch`` backend.  Returns the serving path's launch counts."""
+    import dataclasses
+    from repro_torch import core as pi
+    from repro_torch import data
+    from repro_torch.kernels import pi_range as KR
+    from repro_torch.kernels import pi_search as K
+    from repro_torch.pipeline import (ArrivalConfig, Collector,
+                                      PipelineMetrics, WindowConfig,
+                                      make_arrivals)
+    B = ycfg.batch
+    # YCSB workload E: scanproportion 0.95, insertproportion 0.05, scan
+    # lengths uniform in 1..100 records (1..6400 key units at 2^24 keys
+    # over 2^30), zipfian requests
+    ycfg_e = dataclasses.replace(ycfg, write_ratio=1.0)
+
+    def ycsb_e(n_windows, seed):
+        return make_arrivals(
+            ArrivalConfig(process="poisson", rate=1e6,
+                          n_arrivals=n_windows * B, range_frac=0.95,
+                          span_min=1, span_max=6400, seed=seed),
+            ycfg_e, keys_np)
+
+    for backend in ("cuda", "torch"):   # warm-up: first-call costs
+        serve(pi.with_backend(idx0, backend), ycsb_e(2, SEED + 9), B)
+
+    stream = ycsb_e(SERVE_WINDOWS, SEED)
+    met = PipelineMetrics()
+    K.reset_launch_counts()
+    KR.reset_launch_counts()
+    disp, retired, wall = serve(idx0, stream, B, met)
+    launches = dict(K.LAUNCHES, **KR.LAUNCHES)
+    n_win = len(retired)
+    n_range_win = sum(r.rcnt is not None for r in retired)
+    summ = met.summary()
+    log(f"[serve:cuda] YCSB-E {len(stream)} arrivals in {n_win} windows "
+        f"({n_range_win} with ranges) in {wall:.6f} s: "
+        f"{len(stream) / wall:.1f} arrivals/s; latency p50 "
+        f"{summ['p50_ms']:.6f} ms p99 {summ['p99_ms']:.6f} ms; "
+        f"range_coalesce_hits {summ['range_coalesce_hits']}, range slots "
+        f"{summ['range_slots']}, rebuilds {summ['rebuilds']}; kernel "
+        f"launches {launches}")
+    assert launches["pi_range"] == n_range_win > 0, launches
+    assert launches["pi_probe"] == n_win, launches
+
+    col = Collector(WindowConfig(batch=B))
+    t0 = time.perf_counter()
+    for s in range(0, len(stream), B):
+        col.offer_many(stream.t[s:s + B], stream.ops[s:s + B],
+                       stream.keys[s:s + B], stream.vals[s:s + B],
+                       np.arange(s, min(len(stream), s + B)),
+                       stream.keys2[s:s + B])
+    log(f"[serve:host] admission alone (Collector.offer_many, nothing "
+        f"dispatched): {1e3 * B * (time.perf_counter() - t0) / len(stream):.6f}"
+        f" ms for {B} arrivals")
+
+    t0 = time.perf_counter()
+    oracle = Oracle(*base)
+    n_r, n_p = check_stream(oracle, retired, "YCSB-E")
+    log(f"[serve:cuda] {n_r} RANGE results agree with the pre-window "
+        f"oracle and {n_p} point results with RefIndex (checked in "
+        f"{time.perf_counter() - t0:.3f} s)")
+    del oracle
+
+    tdisp, t_retired, t_wall = serve(pi.with_backend(idx0, "torch"), stream,
+                                     B)
+    log(f"[serve:torch] YCSB-E {len(stream)} arrivals in {t_wall:.6f} s: "
+        f"{len(stream) / t_wall:.1f} arrivals/s")
+    assert same_windows(retired, t_retired), "cuda and torch windows differ"
+    assert same_state(disp.index, tdisp.index), "final states differ"
+    log("[serve] cuda and torch backends bit-identical: every window's "
+        "point and range results and the final state")
+    del tdisp, t_retired
+
+    if args.profile:
+        extra = ycsb_e(args.profile + 1, SEED + 7)
+        col = Collector(WindowConfig(batch=B))
+        windows = col.offer_many(extra.t, extra.ops, extra.keys, extra.vals,
+                                 np.arange(len(extra)), extra.keys2)[1]
+        profile_serving(disp.index, windows[:args.profile + 1],
+                        1e3 * wall / n_win)
+    del disp, retired
+
+    # a mixed stream on a small pending buffer: rebuilds inside the run
+    cfg_m = dataclasses.replace(cfg, pending_capacity=MIXED_PC)
+    idx_m = pi.build(cfg_m, keys_np, vals_np, device=DEVICE)
+    stream = make_arrivals(
+        ArrivalConfig(process="poisson", rate=1e6,
+                      n_arrivals=MIXED_WINDOWS * B, range_frac=0.3,
+                      span_min=1, span_max=6400, seed=SEED + 2),
+        ycfg, keys_np)
+    met = PipelineMetrics()
+    disp, retired, wall = serve(idx_m, stream, B, met)
+    summ = met.summary()
+    log(f"[serve:mixed] {len(stream)} arrivals (30 % scans, write ratio "
+        f"0.5) in {len(retired)} windows in {wall:.6f} s, PC={MIXED_PC}: "
+        f"rebuilds {summ['rebuilds']} ({summ['rebuilds_incremental']} "
+        f"incremental), pending fill peak {summ['pending_fill_peak']:.4f}")
+    assert summ["rebuilds"] >= 1, "no rebuild inside the mixed stream"
+    oracle = Oracle(*base)
+    n_r, n_p = check_stream(oracle, retired, "mixed")
+    assert pi.validate_layout(disp.index)
+    k, v = pi.live_items(disp.index)
+    want_k, want_v = oracle.live()
+    assert np.array_equal(k.astype(np.int64), want_k)
+    assert np.array_equal(v.astype(np.int64), want_v)
+    log(f"[serve:mixed] {n_r} RANGE and {n_p} point results agree with "
+        f"the oracles across the rebuilds; the final live set equals "
+        f"RefIndex's")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
@@ -400,11 +817,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import pi_search as K
 
     # -- 1. build --------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kbuild.build()
     log(f"[build] kernels built/loaded in {time.perf_counter() - t0:.3f} s "
         f"into {kbuild.BUILD_DIR}")
-    ptxas = kbuild.build_log("pi_search")
+    ptxas = "".join(kbuild.build_log(name) for name in kbuild.SIGNATURES)
     regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
     spills = re.findall(r"(\d+) bytes spill stores", ptxas)
     log(f"[build] {len(regs)} kernel instantiations, at most "
@@ -437,11 +854,23 @@ def main(argv=None) -> int:
         .astype(np.int32)
     q = mixed_queries(rng, keys_np, fresh, ycfg.batch, ycfg.key_space)
     check_kernels(idx0, q, "fresh", ITERS)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     filled, _ = pi.insert_batch(idx0, torch.from_numpy(fresh).to(DEVICE),
                                 torch.from_numpy(fresh).to(DEVICE))
     q = mixed_queries(rng, keys_np, fresh, ycfg.batch, ycfg.key_space)
     timing = check_kernels(filled, q, "pending-filled", ITERS)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    lo, hi = range_queries(rng, keys_np, ycfg.batch, ycfg.key_space)
+    range_fresh = check_range_kernel(idx0, lo, hi, "fresh", ITERS)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    dead = np.concatenate([rng.choice(keys_np, ycfg.batch // 2),
+                           rng.choice(fresh, ycfg.batch // 2)])
+    filled, _ = pi.delete_batch(filled, torch.from_numpy(dead).to(DEVICE))
+    lo, hi = range_queries(rng, keys_np, ycfg.batch, ycfg.key_space)
+    range_timing = check_range_kernel(filled, lo, hi, "pending-filled+deletes",
+                                      ITERS)
     del filled
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 3. the main path -------------------------------------------------
     batches_np = [data.ycsb_batch(ycfg, keys_np, w)
@@ -467,8 +896,12 @@ def main(argv=None) -> int:
     assert run_cuda["incremental"], "rebuild after the windows: not incremental"
 
     t0 = time.perf_counter()
-    ref = pi.RefIndex(dict(zip(keys_np.tolist(), vals_np.tolist())))
+    order = np.argsort(keys_np)
+    base = (dict(zip(keys_np.tolist(), vals_np.tolist())),
+            keys_np[order].astype(np.int64), vals_np[order].astype(np.int64))
+    ref = pi.RefIndex(dict(base[0]))
     check_against_ref(ref, batches_np, run_cuda, lookup_np)
+    del ref
     log(f"[main:cuda] {WINDOWS} windows x {ycfg.batch} ops, both "
         f"rebuild tiers, lookup and traverse agree with RefIndex "
         f"(checked in {time.perf_counter() - t0:.3f} s)")
@@ -495,7 +928,15 @@ def main(argv=None) -> int:
         profile_windows(run_cuda["states"][0], extra,
                         1e3 * run_cuda["t_windows"] / WINDOWS)
 
-    # -- 4. launch counts -------------------------------------------------
+    del run_cuda, run_torch, batches
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 4. the serving path ----------------------------------------------
+    serve_launches = run_serving(args, idx0, cfg, keys_np, vals_np, ycfg,
+                                 base)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 5. launch counts -------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
 
@@ -503,7 +944,7 @@ def main(argv=None) -> int:
     kernels = [
         dict(name="pi_probe", route="cuda", source=src,
              replaces="src/repro/kernels/pi_search.py:309",
-             launches=launches["pi_probe"],
+             launches=launches["pi_probe"] + serve_launches["pi_probe"],
              max_abs_err=timing["probe_err"], ms=timing["probe_ms"],
              plain_ms=timing["probe_plain_ms"],
              bound_ms=timing["probe_bound"][0],
@@ -515,6 +956,14 @@ def main(argv=None) -> int:
              plain_ms=timing["search_plain_ms"],
              bound_ms=timing["search_bound"][0],
              bound_by=timing["search_bound"][1], library_ms=None),
+        dict(name="pi_range", route="cuda",
+             source="src/repro_torch/kernels/csrc/pi_range.cu",
+             replaces="src/repro/kernels/pi_range.py:112",
+             launches=serve_launches["pi_range"],
+             max_abs_err=max(range_fresh["err"], range_timing["err"]),
+             ms=range_timing["ms"], plain_ms=range_timing["plain_ms"],
+             bound_ms=range_timing["bound"][0],
+             bound_by=range_timing["bound"][1], library_ms=None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

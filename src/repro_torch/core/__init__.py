@@ -2,7 +2,8 @@
 
 Public surface:
   PIConfig, PIIndex, build, empty, execute, lookup, traverse, rebuild,
-  maybe_rebuild, repack, search/insert/delete_batch        (single shard)
+  maybe_rebuild, repack, range_agg,
+  search/insert/delete_batch                               (single shard)
   SearchEngine, get_engine, Probe, BACKENDS, with_backend  (descent backends)
   from_numpy_leaves, to_numpy_leaves                       (state transfer)
   RefIndex                                                 (oracle)
@@ -12,7 +13,7 @@ from repro_torch.core.engine import BACKENDS, Probe, SearchEngine, get_engine
 from repro_torch.core.index import (
     PIConfig, PIIndex, build, empty, execute, execute_impl,
     from_numpy_leaves, incremental_fits, live_items, lookup, traverse,
-    rebuild, rebuild_tier, maybe_rebuild, needs_rebuild, repack,
+    range_agg, rebuild, rebuild_tier, maybe_rebuild, needs_rebuild, repack,
     search_batch, insert_batch, delete_batch, to_numpy_leaves,
     validate_layout, with_backend,
 )
@@ -21,7 +22,8 @@ from repro_torch.core.ref import RefIndex
 __all__ = [
     "SEARCH", "INSERT", "DELETE", "RANGE", "PIConfig", "PIIndex", "build",
     "empty", "execute", "execute_impl", "from_numpy_leaves",
-    "incremental_fits", "live_items", "lookup", "traverse", "rebuild",
+    "incremental_fits", "live_items", "lookup", "traverse", "range_agg",
+    "rebuild",
     "rebuild_tier", "maybe_rebuild", "needs_rebuild", "repack",
     "search_batch", "insert_batch", "delete_batch", "to_numpy_leaves",
     "validate_layout", "with_backend",

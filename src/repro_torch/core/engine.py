@@ -19,7 +19,11 @@ The primitive is ``probe``: one batched call that returns the
 storage-layer floor slot, the pending-buffer insertion point and the key
 match flags for a whole query batch; ``cuda`` computes all three in one
 kernel launch.  The backends agree bit for bit.  Liveness (tombstones,
-``pn``) is the caller's business.  Range aggregation is not ported yet.
+``pn``) is the caller's business.
+
+``range_agg`` aggregates ranges: ``cuda`` runs ``kernels.pi_range`` (one
+launch: descent + occupied-rank walk + pending pass), ``torch`` computes
+the same values in stock PyTorch ops.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.pi_range import pending_prefix, pi_range, wrap_i32
 from repro_torch.kernels.pi_search import (FLAG_MAIN_MATCH, FLAG_PENDING_HIT,
                                            gather_fill, pi_probe, pi_search,
                                            sentinel_for)
@@ -82,6 +87,27 @@ class SearchEngine:
             return self._probe_cuda(index, q)
         return self._probe_torch(index, q)
 
+    def range_agg(self, index, lo: torch.Tensor, hi: torch.Tensor,
+                  max_span: int):
+        """Batched range aggregation → (count, sum) over keys in [lo, hi].
+
+        The walk advances through *occupied ranks*, not raw slots: a
+        rank→slot table skips segment slack so ``max_span`` counts real
+        keys (live + tombstoned), and tombstones are gated out of the
+        aggregate.  ``cuda`` runs ``kernels.pi_range``; ``torch`` computes
+        the identical values with stock ops.  Sums wrap modulo 2^32.
+        """
+        kdt = index.keys.dtype
+        lo, hi = lo.to(kdt), hi.to(kdt)
+        live, rank, dense2slot, plive = range_tables(index)
+        if self.backend == "cuda":
+            return pi_range(
+                index.keys, live, index.vals, rank, dense2slot, index.pkeys,
+                index.pvals, plive, lo, hi, fanout=index.config.fanout,
+                max_span=max_span, tile_q=self.tile_q, levels=index.levels)
+        return self._range_torch(index, lo, hi, max_span, rank, dense2slot,
+                                 plive)
+
     # -- torch backend -----------------------------------------------------
 
     def _descend_torch(self, index, q: torch.Tensor):
@@ -117,6 +143,32 @@ class SearchEngine:
         p_hit = (index.pkeys[ppos_c.long()] == q) & (ppos < PC)
         return Probe(pos=pos, main_match=main_match, ppos=ppos_c, p_hit=p_hit)
 
+    def _range_torch(self, index, lo, hi, max_span, rank, dense2slot,
+                     plive):
+        """The JAX ``xla`` range path, with the pending pass made two
+        ``searchsorted`` over prefix tables instead of a (B, PC)
+        broadcast."""
+        C = index.keys.shape[0]
+        sent = sentinel_for(index.keys.dtype)
+        pos = self.floor(index, lo)
+        r0 = torch.where(pos >= 0, rank[pos.clamp(0, C - 1).long()], 0)
+        r = r0[:, None].long() + \
+            torch.arange(max_span, device=lo.device)[None, :]
+        slot = gather_fill(dense2slot, r, C)
+        ks = gather_fill(index.keys, slot, sent)
+        ts = gather_fill(index.tomb, slot, True)
+        vs = gather_fill(index.vals, slot, 0)
+        inr = (ks >= lo[:, None]) & (ks <= hi[:, None]) & ~ts & (ks != sent)
+        cnt = inr.sum(1)
+        sm = torch.where(inr, vs.long(), 0).sum(1)
+        pcnt, psum = pending_prefix(index.pvals, plive)
+        a = torch.searchsorted(index.pkeys, lo)
+        b = torch.searchsorted(index.pkeys, hi, right=True)
+        nonempty = lo <= hi
+        cnt = cnt + torch.where(nonempty, pcnt[b] - pcnt[a], 0)
+        sm = sm + torch.where(nonempty, psum[b].long() - psum[a].long(), 0)
+        return cnt.to(torch.int32), wrap_i32(sm)
+
     # -- cuda backend ------------------------------------------------------
 
     def _probe_cuda(self, index, q: torch.Tensor) -> Probe:
@@ -130,6 +182,29 @@ class SearchEngine:
             ppos=ppos.clamp_max(PC - 1),
             p_hit=(flags & FLAG_PENDING_HIT) > 0,
         )
+
+
+def range_tables(index):
+    """The tables ``pi_range`` takes beside the index's own leaves:
+    ``(live, rank, dense2slot, plive)``, all int32.
+
+    ``rank[slot]`` is the occupied rank (occupied slots at or before it,
+    minus one); ``dense2slot[r]`` the slot of the r-th occupied key, C past
+    the end; tombstoned slots keep their key, hence are occupied.  The
+    scatter lands dropped rows on a spare row past the end, which is cut
+    off (the JAX package's ``.at[].set(mode="drop")``).
+    """
+    C = index.keys.shape[0]
+    dev = index.device
+    occ = index.keys != sentinel_for(index.keys.dtype)
+    rank = torch.cumsum(occ, 0, dtype=torch.int32) - 1
+    dense2slot = torch.full((C + 1,), C, dtype=torch.int32, device=dev)
+    dense2slot[torch.where(occ, rank, C).long()] = torch.arange(
+        C, dtype=torch.int32, device=dev)
+    pidx = torch.arange(index.pkeys.shape[0], device=dev)
+    plive = (pidx < index.pn) & ~index.ptomb
+    return ((occ & ~index.tomb).to(torch.int32), rank, dense2slot[:C],
+            plive.to(torch.int32))
 
 
 @functools.lru_cache(maxsize=None)

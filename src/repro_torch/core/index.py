@@ -673,6 +673,26 @@ def maybe_rebuild(index: PIIndex) -> PIIndex:
 repack = _rebuild_repack
 
 
+# ---------------------------------------------------------------------------
+# range queries (paper §3.2.5 / Fig. 14)
+# ---------------------------------------------------------------------------
+
+def range_agg(index: PIIndex, lo, hi, max_span: int = 1024):
+    """Batched range query → (count, sum_of_vals) over keys in [lo, hi].
+
+    Walks up to ``max_span`` *occupied* slots from the interception of
+    ``lo`` (the paper's storage-layer scan), plus the live pending keys in
+    range.  The walk advances through occupied ranks, so segment slack
+    never spends the budget; tombstoned slots keep their key and rank,
+    hence spend it, but are gated out of the aggregate.  Dispatches
+    ``SearchEngine.range_agg``; ``lo``/``hi`` move to the index's device.
+    """
+    kdt = index.keys.dtype
+    lo = torch.as_tensor(lo).to(device=index.device, dtype=kdt)
+    hi = torch.as_tensor(hi).to(device=index.device, dtype=kdt)
+    return get_engine(index.config).range_agg(index, lo, hi, max_span)
+
+
 # convenience wrappers ------------------------------------------------------
 
 def search_batch(index: PIIndex, keys: torch.Tensor):

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout (git ignores it).  The
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing
-here includes PyTorch's headers: a build takes seconds.
+library's file name carries a hash of the source, of the headers it may
+include and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Nothing here includes PyTorch's headers:
+a build takes seconds.
 
 The argument types of every entry point are declared here: pointers and
 the stream are ``c_void_p`` (ctypes would otherwise pass a 32-bit int and
@@ -36,6 +37,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pi_probe_i32": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
                          _P, _P, _P, _P],
     },
+    "pi_range": {
+        "pi_range_i32": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                         _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -54,9 +59,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: the name carries a
+    hash of the source, of every header in ``csrc/`` (which the source may
+    include) and of the flags."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

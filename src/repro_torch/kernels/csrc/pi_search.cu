@@ -32,59 +32,7 @@
 // Each C entry point launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().
 
-#include <climits>
-
-#include <cuda_runtime.h>
-
-#define PI_MAX_LEVELS 32
-#define PI_BLOCK 256
-
-template <typename T>
-struct Levels {
-  const T* ptr[PI_MAX_LEVELS];  // bottom-up: ptr[0] is level 1
-  int len[PI_MAX_LEVELS];
-  int n;
-};
-
-template <typename T> __device__ __forceinline__ T sentinel();
-template <> __device__ __forceinline__ int sentinel<int>() { return INT_MAX; }
-template <> __device__ __forceinline__ float sentinel<float>() {
-  return __int_as_float(0x7f800000);  // +inf
-}
-
-template <typename T>
-__device__ __forceinline__ T load_or_sentinel(const T* a, long long n,
-                                              long long i) {
-  return i < n ? __ldg(a + i) : sentinel<T>();
-}
-
-// Floor slot of q: rank in the top level, then pos = pos*F + rank in the
-// F-key child group of every lower level and of storage.
-template <typename T, int FT>
-__device__ __forceinline__ long long descend(const Levels<T>& lv,
-                                             const T* storage, int C, T q,
-                                             int fanout, bool* underflow) {
-  const int F = FT > 0 ? FT : fanout;
-  const T* top = lv.n ? lv.ptr[lv.n - 1] : storage;
-  // without levels the storage is the top, read at least F wide
-  const int top_len = lv.n ? lv.len[lv.n - 1] : C;
-  const int top_width = lv.n ? top_len : (C > F ? C : F);
-  int cnt = 0;
-  for (int j = 0; j < top_width; ++j)
-    cnt += load_or_sentinel(top, top_len, j) <= q;
-  *underflow = cnt == 0;
-  long long pos = cnt > 0 ? cnt - 1 : 0;
-  for (int l = lv.n - 2; l >= -1; --l) {
-    const T* arr = l >= 0 ? lv.ptr[l] : storage;
-    const long long len = l >= 0 ? lv.len[l] : C;
-    const long long base = pos * F;
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < F; ++j) c += load_or_sentinel(arr, len, base + j) <= q;
-    pos = base + (c > 0 ? c - 1 : 0);
-  }
-  return pos;
-}
+#include "pi_descend.cuh"
 
 template <typename T, int FT>
 __global__ void __launch_bounds__(PI_BLOCK)
@@ -116,12 +64,7 @@ pi_probe_kernel(Levels<T> lv, const T* __restrict__ storage, int C,
   const bool main_match = mpos >= 0 && __ldg(storage + mc) == qi;
 
   // branchless lower bound over the pending buffer seen as P2 wide
-  int count = 0;
-  for (int step = P2 >> 1; step; step >>= 1) {
-    const int cand = count + step;
-    count = load_or_sentinel(pending, PC, cand - 1) < qi ? cand : count;
-  }
-  const int ppos = count + (load_or_sentinel(pending, PC, count) < qi);
+  const int ppos = bound<T, false>(pending, PC, P2, qi);
   const int pc = ppos < PC - 1 ? ppos : PC - 1;
   const bool p_hit = __ldg(pending + pc) == qi && ppos < PC;
 
@@ -133,18 +76,6 @@ pi_probe_kernel(Levels<T> lv, const T* __restrict__ storage, int C,
 // ---------------------------------------------------------------------------
 // host entry points (plain C interface, loaded with ctypes)
 // ---------------------------------------------------------------------------
-
-template <typename T>
-static bool make_levels(Levels<T>* lv, const void* const* ptrs,
-                        const int* lens, int n) {
-  if (n < 0 || n > PI_MAX_LEVELS) return false;
-  for (int l = 0; l < PI_MAX_LEVELS; ++l) {
-    lv->ptr[l] = l < n ? static_cast<const T*>(ptrs[l]) : nullptr;
-    lv->len[l] = l < n ? lens[l] : 0;
-  }
-  lv->n = n;
-  return true;
-}
 
 template <typename T>
 static int launch_search(const void* const* level_ptrs, const int* level_lens,
@@ -179,8 +110,7 @@ static int launch_probe(const void* const* level_ptrs, const int* level_lens,
   if (!make_levels(&lv, level_ptrs, level_lens, n_levels) || fanout < 2 ||
       PC < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
-  int P2 = 1;
-  while (P2 < PC) P2 <<= 1;
+  const int P2 = pow2_at_least(PC);
   const dim3 grid((B + PI_BLOCK - 1) / PI_BLOCK), block(PI_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* st = static_cast<const T*>(storage);

@@ -131,8 +131,11 @@ def _descend(levels: Sequence[torch.Tensor], storage: torch.Tensor,
     return pos, underflow
 
 
-def _lower_bound(sorted_keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """#{i : sorted_keys[i] < q} per lane; twin of the JAX ``_lower_bound``.
+def _lower_bound(sorted_keys: torch.Tensor, q: torch.Tensor,
+                 right: bool = False) -> torch.Tensor:
+    """#{i : sorted_keys[i] < q} per lane (``right``: <= q), capped at the
+    length; twin of the JAX ``_lower_bound`` and of ``bound`` in
+    ``csrc/pi_descend.cuh``.
 
     The branchless binary search over the buffer as if it were padded to a
     power of two with the sentinel (reads past the end are the sentinel).
@@ -140,15 +143,16 @@ def _lower_bound(sorted_keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     n = sorted_keys.shape[0]
     sent = sentinel_for(sorted_keys.dtype)
     p2 = 1 << max(0, (n - 1).bit_length())
+    below = torch.le if right else torch.lt
     count = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
     step = p2 >> 1
     while step:
         cand = count + step
         ck = gather_fill(sorted_keys, cand - 1, sent)
-        count = torch.where(ck < q, cand, count)
+        count = torch.where(below(ck, q), cand, count)
         step >>= 1
     last = gather_fill(sorted_keys, count, sent)
-    return count + (last < q).to(torch.int32)
+    return (count + below(last, q).to(torch.int32)).clamp_max(n)
 
 
 def pi_search_plain(storage: torch.Tensor, queries: torch.Tensor, *,

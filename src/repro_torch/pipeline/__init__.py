@@ -1,5 +1,42 @@
-"""Serving path above the PI core.  Ported so far: ``step_single``, one
-point-op window through one shard (execute, then rebuild if due)."""
-from repro_torch.pipeline.dispatcher import step_single
+"""Serving path above the PI core, for one shard.
 
-__all__ = ["step_single"]
+  workload    open-loop arrival streams (poisson/bursty/diurnal/hotkey
+              timing × the YCSB zipf op mix, with a YCSB-E scan mix)
+  collector   fixed-capacity window: size/deadline seal triggers, SEARCH
+              and exact-pair RANGE coalescing, backpressure; scalar
+              ``offer`` and bulk ``offer_many`` (identical windows)
+  dispatcher  ``Dispatcher``: windows in order against one ``PIIndex``,
+              ranges against the pre-window state, then ``step_single``
+              (execute, rebuild if due), ``depth`` windows in flight
+  ranges      ``execute_ranges``: a window's RANGE lanes, one ``pi_range``
+              launch on the card
+  metrics     enqueue→result latency histograms, occupancy, rebuild and
+              range counters
+
+Not ported yet: the WAL and recovery (ROADMAP A7), overload control
+(A8), the sharded path (A9).
+"""
+from repro_torch.pipeline.collector import (
+    Collector, TRIGGER_DEADLINE, TRIGGER_FLUSH, TRIGGER_SIZE, Window,
+    WindowConfig,
+)
+from repro_torch.pipeline.dispatcher import (
+    DispatchOverflowError, Dispatcher, PendingOverflowError, WindowResult,
+    step_single,
+)
+from repro_torch.pipeline.metrics import LatencyHistogram, PipelineMetrics
+from repro_torch.pipeline.ranges import execute_ranges
+from repro_torch.pipeline.workload import (
+    PROCESSES, ArrivalConfig, ArrivalStream, arrival_times, make_arrivals,
+)
+
+__all__ = [
+    "ArrivalConfig", "ArrivalStream", "PROCESSES", "arrival_times",
+    "make_arrivals",
+    "Collector", "Window", "WindowConfig",
+    "TRIGGER_SIZE", "TRIGGER_DEADLINE", "TRIGGER_FLUSH",
+    "Dispatcher", "DispatchOverflowError", "PendingOverflowError",
+    "WindowResult", "step_single",
+    "LatencyHistogram", "PipelineMetrics",
+    "execute_ranges",
+]

@@ -1,18 +1,66 @@
-"""One point-op window through one PI shard: execute, then rebuild if due.
+"""Windowed dispatch for one PI shard: collector windows → ranges → execute.
 
-Counterpart of ``_step_single`` in ``repro.pipeline.dispatcher``.  The JAX
-package fuses execute, the overflow snapshot and the rebuild-if-due into
-one device program with ``lax.cond``.  PyTorch runs eagerly, so here the
-branch is a host read of ``needs_rebuild``: one device-to-host sync per
-window, and one more on the due branch, where ``rebuild_tier`` reads
-``incremental_fits`` to pick the tier.  Collector, windowed dispatch,
-WAL, recovery and overload control are not ported yet.
+Counterpart of ``repro.pipeline.dispatcher`` for a single ``PIIndex``.
+The ``Dispatcher`` owns the index state and runs sealed collector windows
+against it in order.  A window's RANGE lanes run first, against the
+pre-window state (``pipeline.ranges.execute_ranges``: one ``pi_range``
+launch on the card); then its point view runs through ``step_single``:
+execute, the overflow snapshot, and the rebuild when one is due.
+
+PyTorch launches asynchronously, so with ``depth >= 1`` the host forms
+window k+1 while the card still runs window k, and a window's results
+reach the host (its *retirement*) ``depth`` windows late.  The overlap is
+partial: ``step_single`` reads ``needs_rebuild`` on the host — where the
+JAX package branches with ``lax.cond`` inside one program — which waits
+for the window's execute; and one more read, of ``incremental_fits``,
+picks the tier when a rebuild is due.  Ranges can be enqueued before the
+point execute only because ``execute_impl`` never writes to its input
+index.
+
+Failure contract: a pending-buffer ``overflow`` means a net insert was
+dropped — data loss.  The dispatcher snapshots the flag after every
+execute (the rebuild that follows resets it on the state) and raises
+``PendingOverflowError`` at retirement; the failure then poisons the
+dispatcher, so every later ``submit``/``flush`` raises it again.
+
+Not ported yet: the durability hooks (ROADMAP A7), the overload breaker
+with its recovery step (A8) and the sharded path (A9); the constructor
+refuses them.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.core import index as pi
+from repro_torch.core.batch import RANGE, SEARCH
+from repro_torch.kernels.pi_search import sentinel_for
+from repro_torch.pipeline.collector import Collector, Window, WindowConfig
+from repro_torch.pipeline.metrics import PipelineMetrics
+from repro_torch.pipeline.ranges import execute_ranges
+
+
+class PendingOverflowError(RuntimeError):
+    """The index dropped net inserts: pending buffer overflowed mid-window.
+
+    ``windows`` carries every in-flight ``Window`` at failure time — the
+    failing one first — so a caller can account for exactly which arrivals
+    never produced results.
+    """
+
+    windows: List[Window] = []
+
+
+class DispatchOverflowError(RuntimeError):
+    """Sharded routing dropped queries (a fence bucket overflowed).  Only
+    the sharded path raises it (ROADMAP A9); it poisons the dispatcher
+    like ``PendingOverflowError``."""
+
+    windows: List[Window] = []
 
 
 def step_single(index: pi.PIIndex, ops, keys, vals):
@@ -33,3 +81,252 @@ def step_single(index: pi.PIIndex, ops, keys, vals):
         new_index, incr = pi.rebuild_tier(new_index)
     incr = torch.tensor(incr, device=new_index.device)
     return new_index, found, val, ovf, due, incr, pn
+
+
+@dataclasses.dataclass
+class WindowResult:
+    """A retired window: per-slot results + the arrival→slot map to read them."""
+
+    window: Window
+    found: np.ndarray      # (batch,) bool
+    val: np.ndarray        # (batch,) int32
+    t_retired: float
+    rebuilt: bool
+    rebuilt_incremental: bool = False  # rebuild took the segmented fast tier
+    pending_fill: float = float("nan")  # pn high-water / pending_capacity
+    rcnt: Optional[np.ndarray] = None  # (batch,) int32 RANGE counts
+    rsum: Optional[np.ndarray] = None  # (batch,) int32 RANGE value sums
+
+    def per_arrival(self) -> Dict[int, Tuple[bool, int]]:
+        """qid → (found, val) for *point* arrivals, fanning shared slots
+        back out; RANGE arrivals read theirs from ``per_arrival_ranges``."""
+        out = {}
+        ops = self.window.ops
+        for qid, slot in zip(self.window.qids, self.window.slots):
+            if ops[slot] != RANGE:
+                out[qid] = (bool(self.found[slot]), int(self.val[slot]))
+        return out
+
+    def per_arrival_ranges(self) -> Dict[int, Tuple[int, int]]:
+        """qid → (count, sum) for RANGE arrivals (coalesced pairs fan back
+        out to every arrival sharing the slot)."""
+        out = {}
+        if self.rcnt is None:
+            return out
+        ops = self.window.ops
+        for qid, slot in zip(self.window.qids, self.window.slots):
+            if ops[slot] == RANGE:
+                out[qid] = (int(self.rcnt[slot]), int(self.rsum[slot]))
+        return out
+
+    def latencies(self) -> np.ndarray:
+        """Per-arrival enqueue→result latency, on the caller's time axis."""
+        return self.t_retired - self.window.t_enq
+
+
+@dataclasses.dataclass
+class _InFlight:
+    window: Window
+    found: torch.Tensor
+    val: torch.Tensor
+    overflow: torch.Tensor  # snapshot scalar, taken before the rebuild reset
+    rebuilt: torch.Tensor
+    incr: torch.Tensor      # rebuild tier taken
+    pn: torch.Tensor        # pending fill high-water (pre-rebuild)
+    rcnt: Optional[torch.Tensor] = None  # RANGE counts (pre-window state)
+    rsum: Optional[torch.Tensor] = None  # RANGE value sums
+
+
+class Dispatcher:
+    """Owns the index state; executes sealed windows against it in order."""
+
+    def __init__(self, index, *, mesh=None, depth: int = 1,
+                 check_overflow: bool = True, max_span: int = 1024,
+                 metrics: Optional[PipelineMetrics] = None,
+                 durability=None, overload=None, clock=time.perf_counter):
+        if mesh is not None or not isinstance(index, pi.PIIndex):
+            raise NotImplementedError(
+                "a sharded index or a mesh is not ported yet (ROADMAP A9)")
+        if durability is not None:
+            raise NotImplementedError(
+                "the durability hooks are not ported yet (ROADMAP A7)")
+        if overload is not None:
+            raise NotImplementedError(
+                "overload control and its breaker are not ported yet "
+                "(ROADMAP A8)")
+        self._index = index
+        self.depth = max(0, int(depth))
+        self.check_overflow = check_overflow
+        # occupied-key scan budget per RANGE (core.range_agg's max_span)
+        self.max_span = int(max_span)
+        self.metrics = metrics
+        self._clock = clock
+        self._inflight: List[_InFlight] = []
+        self._poisoned: Optional[BaseException] = None
+        self._pending_capacity = int(index.config.pending_capacity)
+
+    @property
+    def index(self) -> pi.PIIndex:
+        """Current index state (reading its tensors may wait for the card)."""
+        return self._index
+
+    @property
+    def poisoned(self) -> Optional[BaseException]:
+        """The latched retirement failure, if any (see ``_retire_front``)."""
+        return self._poisoned
+
+    # -- execution ---------------------------------------------------------
+
+    def _tensors(self, *arrays):
+        """Window arrays as tensors on the index's device."""
+        dev = self._index.device
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    @staticmethod
+    def _window_has_writes(window: Window) -> bool:
+        ops = np.asarray(window.ops[:window.occupancy])
+        return bool(np.any((ops != SEARCH) & (ops != RANGE)))
+
+    @staticmethod
+    def _window_has_ranges(window: Window) -> bool:
+        if window.keys2 is None:  # pre-range producer: no range lane
+            return False
+        return bool(np.any(np.asarray(window.ops[:window.occupancy])
+                           == RANGE))
+
+    @staticmethod
+    def _point_view(window: Window):
+        """The window's point-op image: RANGE lanes become sentinel
+        SEARCHes — the exact shape of a pad slot — so the point execute
+        serves range-bearing windows unchanged.  Windows without ranges
+        pass through untouched (zero-copy).
+        """
+        ops = np.asarray(window.ops)
+        is_r = ops == RANGE
+        if not is_r.any():
+            return window.ops, window.keys
+        keys = np.asarray(window.keys)
+        sent = sentinel_for(keys.dtype)
+        return (np.where(is_r, SEARCH, ops).astype(ops.dtype),
+                np.where(is_r, sent, keys).astype(keys.dtype))
+
+    def submit(self, window: Window) -> List[WindowResult]:
+        """Dispatch a sealed window; retire whatever exceeds the depth.
+
+        Returns the windows retired by this call (possibly empty) so
+        callers can stream results without a separate polling loop.
+        """
+        self._check_poisoned()
+        # ranges first, against the pre-execute state: every RANGE in the
+        # window observes the index as of the window boundary
+        rcnt = rsum = None
+        if self._window_has_ranges(window):
+            rcnt, rsum = execute_ranges(
+                self._index, *self._tensors(window.ops, window.keys,
+                                            window.keys2), self.max_span)
+        ops, keys = self._point_view(window)
+        self._index, found, val, ovf, rebuilt, incr, pn = step_single(
+            self._index, *self._tensors(ops, keys, window.vals))
+        self._inflight.append(_InFlight(window, found, val, ovf, rebuilt,
+                                        incr, pn, rcnt=rcnt, rsum=rsum))
+        retired = []
+        while len(self._inflight) > self.depth:
+            retired.append(self._retire_front())
+        return retired
+
+    def flush(self) -> List[WindowResult]:
+        """Retire every in-flight window (blocks until the card drains)."""
+        self._check_poisoned()
+        retired = []
+        while self._inflight:
+            retired.append(self._retire_front())
+        return retired
+
+    def run(self, stream, wcfg: Optional[WindowConfig] = None, *,
+            collector: Optional[Collector] = None,
+            chunk: Optional[int] = None,
+            clock=None) -> List[WindowResult]:
+        """Replay a whole arrival stream: bulk admission fused with
+        double-buffered submit.
+
+        ``stream`` is anything with 1-D ``t/ops/keys/vals`` arrays (an
+        ``ArrivalStream``; an optional ``keys2`` array carries RANGE
+        upper bounds); arrival i's qid is its position i.  Admission goes
+        through ``Collector.offer_many`` one ``chunk`` at a time (default:
+        one window's worth) so window formation for chunk k+1 overlaps the
+        card executing chunk k.  With ``clock`` given, admission times are
+        stamped from it per chunk (wall-clock replay); otherwise the
+        stream's own virtual times drive deadline splitting.  The tail
+        window is flush-sealed and every window is retired before
+        returning, in retirement order.
+        """
+        col = collector if collector is not None else Collector(
+            wcfg if wcfg is not None else WindowConfig())
+        step = chunk or col.cfg.batch
+        n = len(stream.t)
+        qids = np.arange(n)
+        keys2 = getattr(stream, "keys2", None)
+        retired: List[WindowResult] = []
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            t = np.full(e - s, clock()) if clock is not None \
+                else stream.t[s:e]
+            _, sealed = col.offer_many(t, stream.ops[s:e], stream.keys[s:e],
+                                       stream.vals[s:e], qids[s:e],
+                                       keys2[s:e] if keys2 is not None
+                                       else None)
+            for w in sealed:
+                retired.extend(self.submit(w))
+        tail = col.take(clock()) if clock is not None else col.take()
+        if tail is not None:
+            retired.extend(self.submit(tail))
+        retired.extend(self.flush())
+        return retired
+
+    def _check_poisoned(self):
+        if self._poisoned is not None:
+            # a fresh instance per raise, so that the latched one's
+            # traceback does not grow with every call; the original rides
+            # along as __cause__
+            e = self._poisoned
+            fresh = type(e)(*e.args)
+            fresh.windows = getattr(e, "windows", [])
+            raise fresh from e
+
+    def _retire_front(self) -> WindowResult:
+        """Retire the oldest in-flight window; latch any data-loss error.
+
+        A failed retirement means the index state already reflects an
+        execute that lost inserts, and every later window ran against it:
+        the failure poisons the dispatcher, the failing window stays in
+        flight, and the exception's ``windows`` lists it plus every window
+        queued behind it, so the caller can replay them elsewhere.
+        """
+        try:
+            res = self._retire(self._inflight[0])
+        except (PendingOverflowError, DispatchOverflowError) as e:
+            e.windows = [f.window for f in self._inflight]
+            self._poisoned = e
+            raise
+        self._inflight.pop(0)
+        return res
+
+    def _retire(self, infl: _InFlight) -> WindowResult:
+        found = infl.found.cpu().numpy()   # waits for the card here
+        val = infl.val.cpu().numpy()
+        if self.check_overflow and bool(infl.overflow):
+            raise PendingOverflowError(
+                "pending buffer overflowed while executing a window: net "
+                "inserts were dropped.  Grow PIConfig.pending_capacity "
+                "above the window batch, or rebuild more aggressively.")
+        res = WindowResult(
+            window=infl.window, found=found, val=val,
+            t_retired=self._clock(), rebuilt=bool(infl.rebuilt),
+            rebuilt_incremental=bool(infl.incr),
+            pending_fill=int(infl.pn) / self._pending_capacity,
+            rcnt=infl.rcnt.cpu().numpy() if infl.rcnt is not None else None,
+            rsum=infl.rsum.cpu().numpy() if infl.rsum is not None else None)
+        if self.metrics is not None:
+            self.metrics.on_retire(res)
+        return res

@@ -41,6 +41,15 @@ def to_torch(index, tcfg):
     return tpi.from_numpy_leaves(tcfg, jax_leaves(index), device="cpu")
 
 
+def to_jax(index, jcfg):
+    """A JAX ``PIIndex`` holding the state of the port's index."""
+    import jax.numpy as jnp
+    from repro.core.index import PIIndex as JaxIndex
+    leaves = [tuple(map(jnp.asarray, leaf)) if isinstance(leaf, tuple)
+              else jnp.asarray(leaf) for leaf in tpi.to_numpy_leaves(index)]
+    return JaxIndex.tree_unflatten(jcfg, leaves)
+
+
 def assert_same_state(jax_index, torch_index, tag=""):
     """Every leaf equal in value and dtype, dead pending lanes included."""
     want = jax_leaves(jax_index)
