@@ -17,7 +17,10 @@ operations.  Phases:
    on the fresh index and on the pending-filled one with deletes (storage
    and pending tombstones), with YCSB-E scans, empty and inert lanes,
    ranges below the minimum or up to INT_MAX - 1 and spans beyond the
-   ``max_span`` budget;
+   ``max_span`` budget; ``bitonic_sort`` on a window's keys, on keys with
+   many ties, sorted, reversed, with sentinel keys, on float32 keys, and
+   at 2^15 and 2^20 keys (its global-memory stages), with the ``cuda``
+   engine's batch sort at a ragged batch against ``torch.argsort``;
 3. the point-op path: windows (write ratio 0.5, zipf theta 0.9) through
    ``step_single``, a two-tier ``rebuild`` (incremental), a ``repack``,
    then ``lookup`` and ``traverse``, with the ``cuda`` backend, checked
@@ -30,9 +33,20 @@ operations.  Phases:
    the ``torch`` backend, bit for bit; then a mixed stream (30 % scans,
    write ratio 0.5) on an index with a small pending buffer, so that
    rebuilds run inside the dispatcher, against the same oracles;
-5. check that each path launched its kernels: ``pi_probe`` and
-   ``pi_search`` on the point path, ``pi_probe`` once a window and
-   ``pi_range`` once a range-bearing window on the serving path.
+5. the durable path: the mixed stream through ``Dispatcher.run`` with a
+   ``Durability`` (WAL append at seal with a per-window fsync, a snapshot
+   every 8 windows) under ``build/durability/``: ``recover`` after a clean
+   close gives the live state bit for bit, on the ``cuda`` and on the
+   ``torch`` backend; a crash injected at each of the five fault points
+   recovers to the state of a dispatcher without durability over exactly
+   the recovered windows, which hold every acknowledged one; a new
+   ``Durability`` over one recovered index finishes the stream at the
+   crash-free state.  Prints the WAL append and fsync times, snapshot and
+   recover times and arrivals/s with and without durability;
+6. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+   and ``bitonic_sort`` on the point path, ``pi_probe`` and
+   ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
+   window on the serving and the durable path.
 
 ``--profile N`` adds device time by kernel over N point windows and N
 serving windows.  The line before the last is a JSON object with one
@@ -47,6 +61,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +86,10 @@ MIXED_PC = 1 << 14   # its pending capacity: rebuilds inside the run
 MAX_SPAN = 1024      # occupied-key budget of a RANGE
 ITERS = 200          # launches a kernel is timed over (plain version: 1/10)
 SEED = 0
+SNAPSHOT_EVERY = 8   # windows between snapshots on the durable path
+DURABLE_DIR = os.path.join(ROOT, "build", "durability")
+CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
+                "ckpt.mid_write", "ckpt.pre_rename")
 
 
 def log(*args):
@@ -422,6 +441,103 @@ def check_range_kernel(idx, lo, hi, tag, iters):
     return dict(t, err=err, bound=rb)
 
 
+def bitonic_bound(B: int):
+    """The least time of a (key, value) sort of B int32 pairs: each pair
+    read and written once; one compare-exchange for each pair of each of
+    the network's log2(B)(log2(B)+1)/2 stages."""
+    log_b = B.bit_length() - 1
+    return bound(16 * B, log_b * (log_b + 1) // 2 * (B // 2))
+
+
+def check_bitonic(rng, window_keys, iters):
+    """bitonic_sort against its plain version and the oracle on the card,
+    bit for bit: a window's keys with arrival values, then random values
+    with many ties, sorted, reversed, with sentinel and INT_MIN keys,
+    float32 keys, and 2^15 and 2^20 pairs (the global-memory stages).  The
+    ``cuda`` engine's batch sort at a ragged batch and
+    ``sort_queries_kernel`` against ``torch.argsort(stable=True)``.  Device
+    times of the kernel, its plain version and ``torch.argsort`` on the
+    window's keys."""
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.kernels import bitonic_sort as KB
+    from repro_torch.kernels.ops import sort_queries_kernel
+    from repro_torch.kernels.ref import bitonic_sort_ref
+    from repro_torch.kernels.pi_search import sentinel_for
+    B = window_keys.numel()
+    sent = sentinel_for(torch.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    def ties(n):
+        return rng.integers(0, n // 4, n).astype(np.int32)
+
+    with_sent = ties(B)
+    with_sent[rng.random(B) < 0.125] = sent
+    with_sent[:16] = np.iinfo(np.int32).min
+    floats = ties(B).astype(np.float32)
+    floats[rng.random(B) < 0.125] = np.inf
+    cases = [("window", window_keys, torch.arange(B, dtype=torch.int32,
+                                                  device=DEVICE)),
+             ("ties", dev(ties(B)), None),
+             ("sorted", dev(np.sort(ties(B))), None),
+             ("reversed", dev(np.sort(ties(B))[::-1]), None),
+             ("sentinels", dev(with_sent), None),
+             ("float32", dev(floats), None),
+             ("2^15", dev(ties(1 << 15)), None),
+             ("2^20", dev(ties(1 << 20)), None)]
+    err = 0
+    for name, k, v in cases:
+        if v is None:
+            v = dev(rng.permutation(k.numel()).astype(np.int32))
+        got = KB.bitonic_sort(k, v)
+        want = KB.bitonic_sort_plain(k, v)
+        ref = bitonic_sort_ref(k, v)
+        torch.cuda.synchronize()
+        as_int = [x.view(torch.int32).long() for x in got + want]
+        err = max(err, max(int((a - b).abs().max()) for a, b in
+                            zip(as_int[:2], as_int[2:])))
+        for a, b, c, what in zip(got, want, ref, ("keys", "vals")):
+            assert torch.equal(a, b), f"bitonic_sort {what} != plain ({name})"
+            assert torch.equal(a, c), f"bitonic_sort {what} != oracle ({name})"
+    keys = dev(with_sent[:8000])
+    ops = torch.arange(8000, dtype=torch.int32, device=DEVICE)
+    perm = SearchEngine("cuda").sort_queries(ops, keys, ops)[0]
+    assert torch.equal(perm, torch.argsort(keys, stable=True)), \
+        "cuda engine sort != stable argsort at B = 8000"
+    perm32 = sort_queries_kernel(ops[:B // 2], keys[:B // 2], ops[:B // 2])[0]
+    assert torch.equal(perm32.long(), torch.argsort(keys[:B // 2],
+                                                    stable=True))
+
+    v = cases[0][2]
+    k20, v20 = cases[-1][1], dev(np.arange(1 << 20, dtype=np.int32))
+    plain_iters = max(iters // 10, 5)
+    t = dict(
+        ms=device_ms(lambda: KB.bitonic_sort(window_keys, v), iters,
+                     "bitonic"),
+        call_ms=time_ms(lambda: KB.bitonic_sort(window_keys, v), iters),
+        plain_ms=device_ms(lambda: KB.bitonic_sort_plain(window_keys, v),
+                           plain_iters),
+        library_ms=device_ms(lambda: torch.argsort(window_keys, stable=True),
+                             iters),
+        big_ms=device_ms(lambda: KB.bitonic_sort(k20, v20), 20, "bitonic"),
+        big_library_ms=device_ms(lambda: torch.argsort(k20, stable=True),
+                                 20))
+    rb, rb20 = bitonic_bound(B), bitonic_bound(1 << 20)
+    log(f"[kernels:bitonic] {len(cases)} cases (B = {B}, 2^15, 2^20; int32 "
+        f"and float32 keys) and the engine's batch sort at B = 8000: "
+        f"bit-identical to the plain version, the oracle and the stable "
+        f"argsort; max_abs_err {err}")
+    log(f"[kernels:bitonic] bitonic_sort B={B}: device {t['ms']:.6f} ms "
+        f"(per call with the host's launch {t['call_ms']:.6f} ms) | plain "
+        f"version device {t['plain_ms']:.6f} ms | torch.argsort(stable) "
+        f"device {t['library_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]}")
+    log(f"[kernels:bitonic] bitonic_sort B=2^20: device {t['big_ms']:.6f} ms "
+        f"| torch.argsort(stable) device {t['big_library_ms']:.6f} ms | "
+        f"bound {rb20[0]:.6f} ms by {rb20[1]}")
+    return dict(t, err=err, bound=rb)
+
+
 class Oracle:
     """The pre-window answer of every operation of a stream.
 
@@ -546,6 +662,19 @@ def same_windows(a, b):
     return len(a) == len(b) and all(
         np.array_equal(getattr(x, f), getattr(y, f))
         for x, y in zip(a, b) for f in fields)
+
+
+def reset_launches():
+    from repro_torch.kernels import bitonic_sort, pi_range, pi_search
+    for mod in (pi_search, pi_range, bitonic_sort):
+        mod.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last ``reset_launches``."""
+    from repro_torch.kernels import bitonic_sort, pi_range, pi_search
+    return dict(pi_search.LAUNCHES, **pi_range.LAUNCHES,
+                **bitonic_sort.LAUNCHES)
 
 
 def profile_serving(idx, windows, window_ms, top=12):
@@ -686,15 +815,29 @@ def profile_windows(idx, batches, window_ms, top=12):
                 f"({count / n:.1f}x) {name[:90]}")
 
 
-def run_serving(args, idx0, cfg, keys_np, vals_np, ycfg, base):
-    """Phase 4: the YCSB-E and the mixed stream through ``Dispatcher.run``,
-    each checked against the pre-window oracle; the YCSB-E stream again
-    with the ``torch`` backend.  Returns the serving path's launch counts."""
+def mixed_setup(cfg, keys_np, vals_np, ycfg):
+    """The mixed stream (30 % scans, write ratio 0.5) and its index, with a
+    pending capacity of MIXED_PC so that rebuilds run inside the stream."""
     import dataclasses
     from repro_torch import core as pi
-    from repro_torch import data
-    from repro_torch.kernels import pi_range as KR
-    from repro_torch.kernels import pi_search as K
+    from repro_torch.pipeline import ArrivalConfig, make_arrivals
+    idx_m = pi.build(dataclasses.replace(cfg, pending_capacity=MIXED_PC),
+                     keys_np, vals_np, device=DEVICE)
+    stream = make_arrivals(
+        ArrivalConfig(process="poisson", rate=1e6,
+                      n_arrivals=MIXED_WINDOWS * ycfg.batch, range_frac=0.3,
+                      span_min=1, span_max=6400, seed=SEED + 2),
+        ycfg, keys_np)
+    return idx_m, stream
+
+
+def run_serving(args, idx0, keys_np, ycfg, base, idx_m, mixed):
+    """Phase 4: the YCSB-E stream and the ``mixed`` one (from ``idx_m``)
+    through ``Dispatcher.run``, each checked against the pre-window
+    oracle; the YCSB-E stream again with the ``torch`` backend.  Returns
+    the YCSB-E run's launch counts."""
+    import dataclasses
+    from repro_torch import core as pi
     from repro_torch.pipeline import (ArrivalConfig, Collector,
                                       PipelineMetrics, WindowConfig,
                                       make_arrivals)
@@ -716,10 +859,9 @@ def run_serving(args, idx0, cfg, keys_np, vals_np, ycfg, base):
 
     stream = ycsb_e(SERVE_WINDOWS, SEED)
     met = PipelineMetrics()
-    K.reset_launch_counts()
-    KR.reset_launch_counts()
+    reset_launches()
     disp, retired, wall = serve(idx0, stream, B, met)
-    launches = dict(K.LAUNCHES, **KR.LAUNCHES)
+    launches = launch_counts()
     n_win = len(retired)
     n_range_win = sum(r.rcnt is not None for r in retired)
     summ = met.summary()
@@ -731,7 +873,8 @@ def run_serving(args, idx0, cfg, keys_np, vals_np, ycfg, base):
         f"{summ['range_slots']}, rebuilds {summ['rebuilds']}; kernel "
         f"launches {launches}")
     assert launches["pi_range"] == n_range_win > 0, launches
-    assert launches["pi_probe"] == n_win, launches
+    assert launches["pi_probe"] == launches["bitonic_sort"] == n_win, \
+        launches
 
     col = Collector(WindowConfig(batch=B))
     t0 = time.perf_counter()
@@ -772,13 +915,7 @@ def run_serving(args, idx0, cfg, keys_np, vals_np, ycfg, base):
     del disp, retired
 
     # a mixed stream on a small pending buffer: rebuilds inside the run
-    cfg_m = dataclasses.replace(cfg, pending_capacity=MIXED_PC)
-    idx_m = pi.build(cfg_m, keys_np, vals_np, device=DEVICE)
-    stream = make_arrivals(
-        ArrivalConfig(process="poisson", rate=1e6,
-                      n_arrivals=MIXED_WINDOWS * B, range_frac=0.3,
-                      span_min=1, span_max=6400, seed=SEED + 2),
-        ycfg, keys_np)
+    stream = mixed
     met = PipelineMetrics()
     disp, retired, wall = serve(idx_m, stream, B, met)
     summ = met.summary()
@@ -800,6 +937,239 @@ def run_serving(args, idx0, cfg, keys_np, vals_np, ycfg, base):
     return launches
 
 
+class SimulatedCrash(RuntimeError):
+    """Raised out of a fault point of the port to model the process dying
+    there (the WAL writes are unbuffered, so the disk is left as a crash
+    at that instruction leaves it)."""
+
+
+def filesystem_of(path: str) -> str:
+    """The type and mount point of the filesystem holding ``path``."""
+    best = ("unknown", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fstype = line.split()[:3]
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[1]):
+                best = (fstype, mnt)
+    return f"{best[0]} at {best[1]}"
+
+
+def copy_window(w):
+    from repro_torch.pipeline import Window
+    return Window(ops=w.ops.copy(), keys=w.keys.copy(), vals=w.vals.copy(),
+                  occupancy=w.occupancy, qids=list(w.qids),
+                  slots=w.slots.copy(), t_open=w.t_open,
+                  t_enq=w.t_enq.copy(), trigger=w.trigger,
+                  keys2=w.keys2.copy())
+
+
+def _timed(fn, times):
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def drive_durable(idx, stream, B, d, crash=None, hit=1):
+    """``stream`` through ``Dispatcher.run`` (depth 1) with a
+    ``Durability`` over ``d`` (per-window fsync, a snapshot every
+    SNAPSHOT_EVERY windows), dying at the ``hit``-th pass of fault point
+    ``crash`` when one is given.  The collector's seal hook copies each
+    window before the WAL sees it and records the acknowledged sequence
+    numbers.  Returns a dict of the sealed copies, the acknowledged seqs,
+    the dispatcher and the host times of appends, fsyncs and snapshots."""
+    from repro_torch import faults
+    from repro_torch.pipeline import (Collector, Dispatcher, Durability,
+                                      WindowConfig)
+    shutil.rmtree(d, ignore_errors=True)
+    hits = [0]
+
+    def hook(point):
+        if point == crash:
+            hits[0] += 1
+            if hits[0] == hit:
+                raise SimulatedCrash(point)
+
+    out = dict(sealed=[], acked=[], append=[], fsync=[], snapshot=[],
+               crashed=False)
+    prev = faults.set_fault_hook(hook if crash else None)
+    try:
+        t0 = time.perf_counter()
+        dur = Durability(d, idx, fsync="per_window",
+                         snapshot_every=SNAPSHOT_EVERY)
+        out["t_init"] = time.perf_counter() - t0
+        dur.wal.sync = _timed(dur.wal.sync, out["fsync"])
+        dur.snapshot = _timed(dur.snapshot, out["snapshot"])
+        append = _timed(dur.on_seal, out["append"])
+
+        def on_seal(win):
+            out["sealed"].append(copy_window(win))
+            out["acked"].append(append(win))
+
+        disp = Dispatcher(idx, depth=1, max_span=MAX_SPAN, durability=dur)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            disp.run(stream, collector=Collector(WindowConfig(batch=B),
+                                                 on_seal=on_seal))
+            dur.close()
+        except SimulatedCrash:
+            out["crashed"] = True
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+    finally:
+        faults.set_fault_hook(prev)
+    if crash is not None:
+        assert out["crashed"] and hits[0] == hit, \
+            f"fault point {crash} was not reached"
+    out["disp"] = disp
+    return out
+
+
+def stream_from(stream, start: int):
+    """The arrivals of ``stream`` from position ``start`` on."""
+    rest = type("Stream", (), {})()
+    for name in ("t", "ops", "keys", "vals", "keys2"):
+        setattr(rest, name, getattr(stream, name)[start:])
+    return rest
+
+
+def run_durable(idx_m, stream, B):
+    """Phase 5: the durable path (see the module docstring).  Returns the
+    crash-free durable run's launch counts."""
+    from repro_torch import core as pi
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import RANGE
+    from repro_torch.pipeline import (Dispatcher, Durability, WindowConfig,
+                                      read_wal, record_window, recover)
+    d = DURABLE_DIR
+    os.makedirs(os.path.dirname(d), exist_ok=True)
+    fs = filesystem_of(os.path.realpath(os.path.dirname(d)))
+    n = len(stream.t)
+
+    _, _, plain_wall = serve(idx_m, stream, B)
+    reset_launches()
+    run = drive_durable(idx_m, stream, B, d)
+    launches = launch_counts()
+    live = run["disp"].index
+    sealed = run["sealed"]
+    n_win = len(sealed)
+    n_range_win = sum(bool((w.ops[:w.occupancy] == RANGE).any())
+                      for w in sealed)
+    assert launches["pi_probe"] == launches["bitonic_sort"] == n_win, \
+        launches
+    assert launches["pi_range"] == n_range_win > 0, launches
+    app, fsy = np.array(run["append"]) * 1e3, np.array(run["fsync"]) * 1e3
+    wal_dir = os.path.join(d, "wal")
+    wal_bytes = sum(os.path.getsize(os.path.join(wal_dir, f))
+                    for f in os.listdir(wal_dir))
+    snaps = run["snapshot"]
+    log(f"[durable] {n} mixed arrivals in {n_win} windows through "
+        f"Dispatcher.run with a Durability (fsync per_window, snapshot "
+        f"every {SNAPSHOT_EVERY}) under {d} on {fs}: {n / run['wall']:.1f} "
+        f"arrivals/s; the same stream without durability "
+        f"{n / plain_wall:.1f} arrivals/s; kernel launches {launches}")
+    log(f"[durable] WAL append a window: mean {app.mean():.6f} ms, p99 "
+        f"{np.percentile(app, 99):.6f} ms ({len(app)} appends, each with "
+        f"its fsync); fsync: mean {fsy.mean():.6f} ms, p99 "
+        f"{np.percentile(fsy, 99):.6f} ms ({len(fsy)} fsyncs); WAL bytes "
+        f"{wal_bytes}")
+
+    # reference states: a dispatcher without durability over the windows
+    ref_states = [idx_m]
+    plain = Dispatcher(idx_m, depth=0, max_span=MAX_SPAN)
+    for w in sealed:
+        plain.submit(copy_window(w))
+        ref_states.append(plain.index)
+    assert same_state(live, ref_states[-1]), "durability changed the state"
+
+    # 1. crash-free: recover, and its two halves timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, tail = recover(d, device=DEVICE)
+    torch.cuda.synchronize()
+    t_recover = time.perf_counter() - t0
+    assert rec.config.backend == "cuda" and same_state(rec, live), \
+        "recover != the live state"
+    ckpt = CheckpointManager(os.path.join(d, "ckpt"))
+    step = ckpt.latest_step()
+    snap_bytes = os.path.getsize(os.path.join(d, "ckpt", f"step_{step}",
+                                              "host0.npz"))
+    t0 = time.perf_counter()
+    snap = ckpt.restore(step, pi.leaf_spec(live.config), device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay = Dispatcher(snap, depth=0, max_span=MAX_SPAN)
+    for r in read_wal(os.path.join(d, "wal")):
+        if r.seq > step:
+            replay.submit(record_window(r))
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    assert same_state(replay.index, live)
+    log(f"[durable] snapshots: initial {1e3 * run['t_init']:.6f} ms "
+        f"(with opening the WAL), periodic {[round(1e3 * x, 6) for x in snaps]}"
+        f" ms, {snap_bytes} B each (step {step}); recover "
+        f"{1e3 * t_recover:.6f} ms for {len(tail)} replayed windows: load "
+        f"{1e3 * t_load:.6f} ms, replay {1e3 * t_replay:.6f} ms (timed "
+        f"apart)")
+    meta_path = os.path.join(d, "durability.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["config"]["backend"] = "xla"
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    rec_t, _ = recover(d, device=DEVICE)
+    assert rec_t.config.backend == "torch" and same_state(rec_t, live), \
+        "torch-backend recover != the live state"
+    log("[durable] crash-free: recover equals the live state bit for bit, "
+        "on the cuda and on the torch backend, and so does a dispatcher "
+        "without durability over the same windows")
+    del rec, rec_t, snap, replay
+
+    # 2. a crash at each fault point; 3. resume after the first
+    for point in CRASH_POINTS:
+        hit = 3 if point.startswith("wal.") else 2
+        crash = drive_durable(idx_m, stream, B, d, crash=point, hit=hit)
+        got = crash["sealed"]
+        assert [w.qids for w in got] == [w.qids for w in sealed[:len(got)]]
+        acked = crash["acked"][-1] if crash["acked"] else 0
+        rec, tail = recover(d, device=DEVICE)
+        step = CheckpointManager(os.path.join(d, "ckpt")).latest_step()
+        n_applied = step + len(tail)
+        assert acked <= n_applied <= len(got), (point, acked, n_applied)
+        if point == "wal.mid_append":
+            assert n_applied == acked, (point, acked, n_applied)
+        if point.startswith("ckpt."):
+            assert n_applied == acked == len(got), (point, acked, n_applied)
+        assert same_state(rec, ref_states[n_applied]), point
+        log(f"[durable] crash at {point} (pass {hit}): {len(got)} windows "
+            f"sealed, {acked} acknowledged, snapshot {step} + "
+            f"{len(tail)} replayed = {n_applied}; the state equals a "
+            f"dispatcher without durability over those windows")
+        if point != "wal.mid_append":
+            continue
+        start = sum(w.n_arrivals for w in got[:n_applied])
+        dur = Durability(d, rec, fsync="per_window",
+                         snapshot_every=SNAPSHOT_EVERY)
+        assert dur.wal.last_seq == n_applied
+        resumed = Dispatcher(rec, depth=1, max_span=MAX_SPAN, durability=dur)
+        resumed.run(stream_from(stream, start), WindowConfig(batch=B))
+        dur.close()
+        assert same_state(resumed.index, live), "resumed run != crash-free"
+        again, _ = recover(d, device=DEVICE)
+        assert same_state(again, live)
+        log(f"[durable] resumed after the crash at {point}: a new "
+            f"Durability over the recovered index took arrivals {start}.."
+            f"{n - 1} to the crash-free state, and recover after it too")
+        del resumed, again
+    shutil.rmtree(d)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
@@ -814,7 +1184,6 @@ def main(argv=None) -> int:
     from repro_torch import core as pi
     from repro_torch import data
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import pi_search as K
 
     # -- 1. build --------------------------------------------------------
     t_start = t0 = time.perf_counter()
@@ -871,6 +1240,9 @@ def main(argv=None) -> int:
                                       ITERS)
     del filled
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    window_keys = torch.from_numpy(data.ycsb_batch(ycfg, keys_np, 0)[1])
+    bitonic = check_bitonic(rng, window_keys.to(DEVICE), ITERS)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 3. the main path -------------------------------------------------
     batches_np = [data.ycsb_batch(ycfg, keys_np, w)
@@ -885,10 +1257,10 @@ def main(argv=None) -> int:
     for backend in ("cuda", "torch"):   # warm-up: first-call costs
         run_main_path(pi.with_backend(idx0, backend), batches[:2], lookup_q)
 
-    K.reset_launch_counts()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     run_cuda = run_main_path(idx0, batches, lookup_q)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     summarize("cuda", run_cuda, ycfg.batch)
     log(f"[main:cuda] kernel launches {launches}; peak device memory "
@@ -932,19 +1304,29 @@ def main(argv=None) -> int:
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 4. the serving path ----------------------------------------------
-    serve_launches = run_serving(args, idx0, cfg, keys_np, vals_np, ycfg,
-                                 base)
+    idx_m, mixed = mixed_setup(cfg, keys_np, vals_np, ycfg)
+    serve_launches = run_serving(args, idx0, keys_np, ycfg, base, idx_m,
+                                 mixed)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 5. launch counts -------------------------------------------------
+    # -- 5. the durable path ----------------------------------------------
+    durable_launches = run_durable(idx_m, mixed, ycfg.batch)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 6. launch counts -------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
+    assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
+    paths = (launches, serve_launches, durable_launches)
+
+    def total(name):
+        return sum(p[name] for p in paths)
 
     src = "src/repro_torch/kernels/csrc/pi_search.cu"
     kernels = [
         dict(name="pi_probe", route="cuda", source=src,
              replaces="src/repro/kernels/pi_search.py:309",
-             launches=launches["pi_probe"] + serve_launches["pi_probe"],
+             launches=total("pi_probe"),
              max_abs_err=timing["probe_err"], ms=timing["probe_ms"],
              plain_ms=timing["probe_plain_ms"],
              bound_ms=timing["probe_bound"][0],
@@ -959,11 +1341,18 @@ def main(argv=None) -> int:
         dict(name="pi_range", route="cuda",
              source="src/repro_torch/kernels/csrc/pi_range.cu",
              replaces="src/repro/kernels/pi_range.py:112",
-             launches=serve_launches["pi_range"],
+             launches=total("pi_range"),
              max_abs_err=max(range_fresh["err"], range_timing["err"]),
              ms=range_timing["ms"], plain_ms=range_timing["plain_ms"],
              bound_ms=range_timing["bound"][0],
              bound_by=range_timing["bound"][1], library_ms=None),
+        dict(name="bitonic_sort", route="cuda",
+             source="src/repro_torch/kernels/csrc/bitonic_sort.cu",
+             replaces="src/repro/kernels/bitonic_sort.py:55",
+             launches=total("bitonic_sort"), max_abs_err=bitonic["err"],
+             ms=bitonic["ms"], plain_ms=bitonic["plain_ms"],
+             bound_ms=bitonic["bound"][0], bound_by=bitonic["bound"][1],
+             library_ms=bitonic["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

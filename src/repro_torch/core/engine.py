@@ -2,17 +2,21 @@
 
 Counterpart of ``repro.core.engine``.  Every traversal consumer
 (``lookup``, ``execute``, ``traverse``) asks the engine for positions, and
-the engine dispatches one of two backends:
+``execute`` asks it for its batch sort; the engine dispatches one of two
+backends:
 
 ================  ==========================================================
 backend           what runs
 ================  ==========================================================
 ``torch``         the descent and a ``torch.searchsorted`` pending probe in
-                  stock PyTorch ops (the JAX package's ``xla`` backend).
+                  stock PyTorch ops (the JAX package's ``xla`` backend);
+                  the batch sort is the stable ``torch.argsort`` of
+                  ``core.batch.sort_queries``.
 ``cuda``          the hand-written kernels ``kernels.pi_search.pi_probe`` /
-                  ``pi_search``.  On a CPU tensor the wrappers run their
-                  plain versions, as ``pallas-interpret`` runs the Pallas
-                  kernels on a CPU.  The default.
+                  ``pi_search``, and ``kernels.bitonic_sort`` for the batch
+                  sort.  On a CPU tensor the wrappers run their plain
+                  versions, as ``pallas-interpret`` runs the Pallas kernels
+                  on a CPU.  The default.
 ================  ==========================================================
 
 The primitive is ``probe``: one batched call that returns the
@@ -24,6 +28,12 @@ kernel launch.  The backends agree bit for bit.  Liveness (tombstones,
 ``range_agg`` aggregates ranges: ``cuda`` runs ``kernels.pi_range`` (one
 launch: descent + occupied-rank walk + pending pass), ``torch`` computes
 the same values in stock PyTorch ops.
+
+``sort_queries`` is the batch sort of ``execute`` (the paper's Def. 3):
+``cuda`` pads the batch to a power of two and runs ``bitonic_sort`` once,
+with the arrival index in the tie-break lane; both backends give the same
+permutation.  The pending merge and the rebuilds sort with ``torch.argsort``
+on both, as the JAX package sorts them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ import functools
 
 import torch
 
+from repro_torch.core.batch import sort_queries
+from repro_torch.kernels.bitonic_sort import bitonic_sort
 from repro_torch.kernels.pi_range import pending_prefix, pi_range, wrap_i32
 from repro_torch.kernels.pi_search import (FLAG_MAIN_MATCH, FLAG_PENDING_HIT,
                                            gather_fill, pi_probe, pi_search,
@@ -107,6 +119,32 @@ class SearchEngine:
                 max_span=max_span, tile_q=self.tile_q, levels=index.levels)
         return self._range_torch(index, lo, hi, max_span, rank, dense2slot,
                                  plive)
+
+    def sort_queries(self, ops: torch.Tensor, keys: torch.Tensor,
+                     vals: torch.Tensor):
+        """Stable sort of a query batch by key → (perm, ops, keys, vals)
+        sorted, ``perm`` int64 (``core.batch.sort_queries``'s contract).
+
+        ``cuda`` pads the keys to the next power of two P with the
+        sentinel and the arrival index to B..P-1, runs ``bitonic_sort``
+        once on (key, arrival) and keeps the first B lanes.  That is the
+        stable argsort: the network orders key ties by arrival, and a
+        real lane holding the sentinel key has an arrival below B, so it
+        sorts ahead of every pad.  B <= 1 launches nothing.
+        """
+        if self.backend != "cuda":
+            return sort_queries(ops, keys, vals)
+        B = keys.shape[0]
+        if B <= 1:
+            perm = torch.arange(B, device=keys.device)
+        else:
+            P = 1 << (B - 1).bit_length()
+            padded = torch.full((P,), sentinel_for(keys.dtype),
+                                dtype=keys.dtype, device=keys.device)
+            padded[:B] = keys
+            arrival = torch.arange(P, dtype=torch.int32, device=keys.device)
+            perm = bitonic_sort(padded, arrival)[1][:B].long()
+        return perm, ops[perm], keys[perm], vals[perm]
 
     # -- torch backend -----------------------------------------------------
 

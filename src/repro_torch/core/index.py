@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.batch import (SEARCH, INSERT, DELETE,
-                                    seg_last_write_scan, sort_queries)
+                                    seg_last_write_scan)
 from repro_torch.core.engine import BACKENDS, get_engine
 from repro_torch.kernels.pi_search import (gather_fill, sentinel_for,
                                            torch_dtype)
@@ -317,6 +317,51 @@ def to_numpy_leaves(index: PIIndex) -> list:
             for leaf in index.leaves()]
 
 
+def flat_leaves(index: PIIndex) -> list:
+    """The state tensors in the order ``jax.tree_util.tree_flatten`` gives
+    the JAX ``PIIndex``: ``levels`` expanded in place, 10 + H leaves.  The
+    order of a snapshot's ``leaf_0 .. leaf_{9+H}``."""
+    return [index.keys, index.vals, index.tomb, index.n, *index.levels,
+            index.pkeys, index.pvals, index.ptomb, index.pn, index.n_updates,
+            index.overflow]
+
+
+def from_flat_leaves(cfg: PIConfig, leaves: Sequence) -> PIIndex:
+    """A ``PIIndex`` of ``cfg`` from tensors in the ``flat_leaves`` order
+    (the inverse: regroups the ``H = cfg.num_levels`` level tensors)."""
+    H = cfg.num_levels
+    if len(leaves) != 10 + H:
+        raise ValueError(f"{len(leaves)} leaves; a PIIndex with {H} levels "
+                         f"has {10 + H}")
+    keys, vals, tomb, n = leaves[:4]
+    pkeys, pvals, ptomb, pn, n_upd, ovf = leaves[4 + H:]
+    return PIIndex(keys=keys, vals=vals, tomb=tomb, n=n,
+                   levels=tuple(leaves[4:4 + H]), pkeys=pkeys, pvals=pvals,
+                   ptomb=ptomb, pn=pn, n_updates=n_upd, overflow=ovf,
+                   config=cfg)
+
+
+def leaf_spec(cfg: PIConfig) -> PIIndex:
+    """A ``PIIndex`` of ``cfg``'s geometry on the ``meta`` device: every
+    leaf's shape and dtype, no storage.  What a snapshot is restored into
+    when no index exists yet (``pipeline.recovery.recover``)."""
+    kdt = torch_dtype(cfg.key_dtype)
+    C, PC = cfg.capacity, cfg.pending_capacity
+
+    def m(n, dtype):
+        return torch.empty((n,) if n is not None else (), dtype=dtype,
+                           device="meta")
+
+    return PIIndex(
+        keys=m(C, kdt), vals=m(C, _I32), tomb=m(C, torch.bool),
+        n=m(None, _I32),
+        levels=tuple(m(cfg.level_size(lvl), kdt)
+                     for lvl in range(1, cfg.num_levels + 1)),
+        pkeys=m(PC, kdt), pvals=m(PC, _I32), ptomb=m(PC, torch.bool),
+        pn=m(None, _I32), n_updates=m(None, _I32),
+        overflow=m(None, torch.bool), config=cfg)
+
+
 # ---------------------------------------------------------------------------
 # traversal (the paper's Alg. 2 — index-layer BFS descent, via the engine)
 # ---------------------------------------------------------------------------
@@ -389,7 +434,8 @@ def execute_impl(index: PIIndex, ops: torch.Tensor, qkeys: torch.Tensor,
     qkeys = torch.as_tensor(qkeys).to(device=dev, dtype=kdt)
     qvals = torch.as_tensor(qvals).to(device=dev, dtype=_I32)
 
-    perm, s_ops, s_keys, s_vals = sort_queries(ops, qkeys, qvals)
+    perm, s_ops, s_keys, s_vals = get_engine(cfg).sort_queries(
+        ops, qkeys, qvals)
     newseg = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                         s_keys[1:] != s_keys[:-1]])
     is_write = s_ops != SEARCH

@@ -1,3 +1,5 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
-version beside it (``pi_search``: the index descent and the fused probe).
+version beside it (``pi_search``: the index descent and the fused probe;
+``pi_range``: range aggregation; ``bitonic_sort``: the batch sort).
+``ref`` holds independent oracles, ``ops`` the JAX package's wrappers.
 """

@@ -41,6 +41,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pi_range_i32": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P,
                          _P, _P, _P, _I, _I, _I, _P, _P, _P],
     },
+    "bitonic_sort": {
+        "bitonic_sort_i32": [_P, _P, _P, _P, _I, _P],
+        "bitonic_sort_f32": [_P, _P, _P, _P, _I, _P],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

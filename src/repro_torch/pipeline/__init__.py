@@ -10,11 +10,14 @@
               (execute, rebuild if due), ``depth`` windows in flight
   ranges      ``execute_ranges``: a window's RANGE lanes, one ``pi_range``
               launch on the card
-  metrics     enqueue→result latency histograms, occupancy, rebuild and
-              range counters
+  metrics     enqueue→result latency histograms, occupancy, rebuild,
+              range and durability counters
+  wal         segmented CRC-framed write-ahead log, one record per sealed
+              window (byte-identical to the JAX package's)
+  recovery    ``Durability`` (WAL append at seal, periodic snapshots) and
+              ``recover`` (latest snapshot + WAL tail replay)
 
-Not ported yet: the WAL and recovery (ROADMAP A7), overload control
-(A8), the sharded path (A9).
+Not ported yet: overload control (ROADMAP A8), the sharded path (A9).
 """
 from repro_torch.pipeline.collector import (
     Collector, TRIGGER_DEADLINE, TRIGGER_FLUSH, TRIGGER_SIZE, Window,
@@ -26,6 +29,11 @@ from repro_torch.pipeline.dispatcher import (
 )
 from repro_torch.pipeline.metrics import LatencyHistogram, PipelineMetrics
 from repro_torch.pipeline.ranges import execute_ranges
+from repro_torch.pipeline.recovery import Durability, RecoveryError, recover
+from repro_torch.pipeline.wal import (
+    FSYNC_POLICIES, WalCorruptionError, WalRecord, WalWriter, read_wal,
+    record_window,
+)
 from repro_torch.pipeline.workload import (
     PROCESSES, ArrivalConfig, ArrivalStream, arrival_times, make_arrivals,
 )
@@ -39,4 +47,7 @@ __all__ = [
     "WindowResult", "step_single",
     "LatencyHistogram", "PipelineMetrics",
     "execute_ranges",
+    "Durability", "RecoveryError", "recover",
+    "FSYNC_POLICIES", "WalCorruptionError", "WalRecord", "WalWriter",
+    "read_wal", "record_window",
 ]

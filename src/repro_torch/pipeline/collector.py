@@ -102,9 +102,10 @@ class Collector:
     """Fixed-capacity admission window with size/deadline seal triggers.
 
     ``on_seal`` is the durability seam: called with every ``Window`` the
-    instant it seals — before the caller can dispatch it — so a
-    write-ahead log hooked here (the durability tier, ROADMAP A7) has the
-    window on disk before its effects can be exposed.  The hook sees windows in
+    instant it seals — before the caller can dispatch it — so the
+    write-ahead log hooked here (``pipeline/wal.py``, through
+    ``pipeline.recovery.Durability.on_seal``) has the window on disk
+    before its effects can be exposed.  The hook sees windows in
     seal order regardless of the admission path (scalar ``offer``, bulk
     ``offer_many``, or an explicit ``take``).
     """

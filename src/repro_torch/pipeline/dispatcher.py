@@ -23,9 +23,13 @@ execute (the rebuild that follows resets it on the state) and raises
 ``PendingOverflowError`` at retirement; the failure then poisons the
 dispatcher, so every later ``submit``/``flush`` raises it again.
 
-Not ported yet: the durability hooks (ROADMAP A7), the overload breaker
-with its recovery step (A8) and the sharded path (A9); the constructor
-refuses them.
+Durability (``pipeline.recovery.Durability``): ``run`` hands the
+collector ``durability.on_seal``, so every window is in the WAL before it
+is dispatched, and ``submit`` calls ``durability.maybe_snapshot`` after
+each window's step.
+
+Not ported yet: the overload breaker with its recovery step (ROADMAP A8)
+and the sharded path (A9); the constructor refuses them.
 """
 from __future__ import annotations
 
@@ -147,9 +151,6 @@ class Dispatcher:
         if mesh is not None or not isinstance(index, pi.PIIndex):
             raise NotImplementedError(
                 "a sharded index or a mesh is not ported yet (ROADMAP A9)")
-        if durability is not None:
-            raise NotImplementedError(
-                "the durability hooks are not ported yet (ROADMAP A7)")
         if overload is not None:
             raise NotImplementedError(
                 "overload control and its breaker are not ported yet "
@@ -160,6 +161,9 @@ class Dispatcher:
         # occupied-key scan budget per RANGE (core.range_agg's max_span)
         self.max_span = int(max_span)
         self.metrics = metrics
+        # durability tier (pipeline.recovery.Durability): submit() calls
+        # maybe_snapshot after each window, run() wires on_seal
+        self.durability = durability
         self._clock = clock
         self._inflight: List[_InFlight] = []
         self._poisoned: Optional[BaseException] = None
@@ -230,6 +234,10 @@ class Dispatcher:
             self._index, *self._tensors(ops, keys, window.vals))
         self._inflight.append(_InFlight(window, found, val, ovf, rebuilt,
                                         incr, pn, rcnt=rcnt, rsum=rsum))
+        if self.durability is not None:
+            # the new index state reflects every window up to and
+            # including this one, so window.seq is its WAL position
+            self.durability.maybe_snapshot(self._index, window.seq)
         retired = []
         while len(self._inflight) > self.depth:
             retired.append(self._retire_front())
@@ -262,7 +270,9 @@ class Dispatcher:
         returning, in retirement order.
         """
         col = collector if collector is not None else Collector(
-            wcfg if wcfg is not None else WindowConfig())
+            wcfg if wcfg is not None else WindowConfig(),
+            on_seal=(self.durability.on_seal
+                     if self.durability is not None else None))
         step = chunk or col.cfg.batch
         n = len(stream.t)
         qids = np.arange(n)

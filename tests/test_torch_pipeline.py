@@ -240,8 +240,7 @@ def test_dispatcher_refuses_unported_tiers():
     idx = tpi.build(tpi.PIConfig(capacity=64, pending_capacity=8),
                     np.arange(4, dtype=np.int32),
                     np.arange(4, dtype=np.int32), device="cpu")
-    for kw, item in ((dict(durability=object()), "A7"),
-                     (dict(overload=object()), "A8"),
+    for kw, item in ((dict(overload=object()), "A8"),
                      (dict(mesh=object()), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             tpipe.Dispatcher(idx, **kw)
