@@ -43,10 +43,33 @@ operations.  Phases:
    ``Durability`` over one recovered index finishes the stream at the
    crash-free state.  Prints the WAL append and fsync times, snapshot and
    recover times and arrivals/s with and without durability;
-6. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+6. ``[kernels:flash]``: ``flash_attention_fwd`` against its plain
+   version on the card at phi3-mini's prefill shape (8 x 2048 tokens, 32
+   heads of 96, bfloat16, causal), yi-34b's heads (56 over 8 KV heads),
+   MQA with a window of 64, a softcap of 50, a ragged length of 1000 at
+   head dim 256 and one float32 case, within 3e-2 in bfloat16 and 2e-3
+   in float32; device time at phi3's shape against its bound, the plain
+   version and ``F.scaled_dot_product_attention`` (timed only);
+7. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
+   heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
+   on a CUDA generator seeded with ``SEED``, cast once to bfloat16: a
+   prefill of 8 prompts of 2048 tokens (the flash kernel once a layer,
+   checked by its count, and ``forward`` likewise), 64 greedy decode
+   steps from its cache; then the same config in float32, whose prefill
+   of 2 x 256 tokens must agree with 256 token-by-token decode steps
+   (attention by plain einsums) in its last logits and every cache leaf;
+   device time of a prefill and of a decode step by kernel;
+8. ``[serve:lm]``: the LM ``Server`` at that width (8 slots, 128
+   positions, the ``cuda`` session table, a WAL under
+   ``build/serve_wal``) serves 16 requests with prompts of 16-48 tokens
+   and 16 new tokens each until drained, with ``session_range`` checked
+   midway against the host's view; ``recover`` of its directory equals
+   its table bit for bit;
+9. check that each path launched its kernels: ``pi_probe``, ``pi_search``
    and ``bitonic_sort`` on the point path, ``pi_probe`` and
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
-   window on the serving and the durable path.
+   window on the serving, the durable and the LM serving path,
+   ``flash_attention_fwd`` once a layer of every prefill and forward.
 
 ``--profile N`` adds device time by kernel over N point windows and N
 serving windows.  The line before the last is a JSON object with one
@@ -72,10 +95,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor
-# float32 rate, taken as the rate of the int32 compares these kernels do.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the non-tensor
+# float32 rate, taken as the rate of the int32 compares these kernels do,
+# and the dense bfloat16 tensor-core rate (attention's operations).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 DEVICE = "cuda"
 N_KEYS = 1 << 24     # YCSB dataset size (paper: 2M..256M)
@@ -90,6 +115,23 @@ SNAPSHOT_EVERY = 8   # windows between snapshots on the durable path
 DURABLE_DIR = os.path.join(ROOT, "build", "durability")
 CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
                 "ckpt.mid_write", "ckpt.pre_rename")
+LM_ARCH = "phi3-mini-3.8b"
+LM_PARAMS = 3_822_259_200        # its parameters, vocab padded to 32256
+PREFILL_B, PREFILL_S = 8, 2048   # the [lm] prefill: 8 prompts of 2048
+DECODE_STEPS = 64                # greedy steps from the prefill's cache
+CHECK_B, CHECK_S = 2, 256        # the float32 prefill-vs-decode check
+SERVE_REQUESTS = 16              # [serve:lm] requests, 16-48 prompt tokens
+SERVE_DIR = os.path.join(ROOT, "build", "serve_wal")
+# [kernels:flash]: ((B, S, H, KV, D), dtype, window, softcap, name);
+# the first is phi3's prefill, the one timed
+FLASH_CASES = [
+    ((PREFILL_B, PREFILL_S, 32, 32, 96), torch.bfloat16, None, None, "phi3"),
+    ((1, 1024, 56, 8, 128), torch.bfloat16, None, None, "yi-34b GQA"),
+    ((2, 1024, 16, 1, 128), torch.bfloat16, 64, None, "MQA window 64"),
+    ((2, 1024, 32, 32, 96), torch.bfloat16, None, 50.0, "softcap 50"),
+    ((1, 1000, 16, 16, 256), torch.bfloat16, None, None,
+     "ragged S=1000 D=256"),
+    ((2, 512, 32, 32, 96), torch.float32, None, None, "float32")]
 
 
 def log(*args):
@@ -258,9 +300,9 @@ def range_touch(idx, tables, lo, hi, max_span):
                                                max_span).sum())
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -664,17 +706,23 @@ def same_windows(a, b):
         for x, y in zip(a, b) for f in fields)
 
 
+def kernel_modules():
+    from repro_torch.kernels import (bitonic_sort, flash_attention, pi_range,
+                                     pi_search)
+    return (pi_search, pi_range, bitonic_sort, flash_attention)
+
+
 def reset_launches():
-    from repro_torch.kernels import bitonic_sort, pi_range, pi_search
-    for mod in (pi_search, pi_range, bitonic_sort):
+    for mod in kernel_modules():
         mod.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """Every kernel's launches since the last ``reset_launches``."""
-    from repro_torch.kernels import bitonic_sort, pi_range, pi_search
-    return dict(pi_search.LAUNCHES, **pi_range.LAUNCHES,
-                **bitonic_sort.LAUNCHES)
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def profile_serving(idx, windows, window_ms, top=12):
@@ -1170,6 +1218,269 @@ def run_durable(idx_m, stream, B):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the LM path: the flash kernel, prefill and decode, the LM server
+# ---------------------------------------------------------------------------
+
+def flash_bound(B, Sq, H, KV, D, causal=True):
+    """The least time of the attention forward: ``flash_hbm_bytes`` (q and
+    out once, k and v once a head) over the HBM rate, against the
+    multiply-adds of QK^T and PV that the causal mask leaves, 4 B H D
+    Sq (Sq + 1) / 2 operations, over the bfloat16 tensor-core rate."""
+    from repro_torch.kernels.flash_attention import flash_hbm_bytes
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sq
+    return bound(flash_hbm_bytes(B, Sq, Sq, H, KV, D, D),
+                 4 * B * H * D * pairs, BF16_OPS_PER_S)
+
+
+def check_flash(iters):
+    """``[kernels:flash]``: the kernel against its plain version on the
+    card at the cases of the module docstring; device times at phi3's
+    prefill shape of the kernel, its plain version and
+    ``F.scaled_dot_product_attention`` on the same tensors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 3e-2, f32: 2e-3}
+    err, out = 0.0, {}
+    for (B, S, H, KV, D), dt, window, cap, name in FLASH_CASES:
+        q = torch.randn(B, S, H, D, generator=g, device=DEVICE).to(dt)
+        k = torch.randn(B, S, KV, D, generator=g, device=DEVICE).to(dt)
+        v = torch.randn(B, S, KV, D, generator=g, device=DEVICE).to(dt)
+        got = FA.flash_attention_fwd(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        want = FA.flash_attention_fwd_plain(q, k, v, window=window,
+                                            softcap=cap)
+        e = (got.float() - want.float()).abs().max().item()
+        assert np.isfinite(e) and e <= tol[dt], (name, e)
+        err = max(err, e)
+        log(f"[kernels:flash] {name} {(B, S, H, KV, D)} {dt}: max_abs_err "
+            f"{e:.6g} (tolerance {tol[dt]})")
+        if name == "phi3":
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out = dict(
+                ms=device_ms(lambda: FA.flash_attention_fwd(q, k, v), iters,
+                             "flash_fwd_kernel"),
+                plain_ms=device_ms(lambda: FA.flash_attention_fwd_plain(
+                    q, k, v), max(1, iters // 10)),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), iters),
+                bound=flash_bound(B, S, H, KV, D))
+        del q, k, v, got, want
+    out["err"] = err
+    log(f"[kernels:flash] phi3 prefill shape: kernel {out['ms']:.6f} ms, "
+        f"plain {out['plain_ms']:.6f} ms, scaled_dot_product_attention "
+        f"{out['library_ms']:.6f} ms; bound {out['bound'][0]:.6f} ms "
+        f"({out['bound'][1]}); the kernel at "
+        f"{100 * out['bound'][0] / out['ms']:.2f}% of its bound")
+    return out
+
+
+def time_split(fn, tag):
+    """Device time of one ``fn()`` by kernel class, from the profiler (the
+    flash kernel, the matrix products of cuBLAS, the rest), beside the
+    host's time to enqueue it and its count of PyTorch operators."""
+    dev, ops = device_events(fn, 1)
+    total = sum(t for _, t, _ in dev) / 1e3
+    cls = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, t, _ in dev:
+        low = name.lower()
+        key = "flash" if "flash_fwd_kernel" in name else "matmul" if any(
+            w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) \
+            else "other"
+        cls[key] += t / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_ops = sum(c for name, _, c in ops if name.startswith("aten::"))
+    log(f"[lm] {tag} device time {total:.6f} ms: " + ", ".join(
+        f"{k} {v:.6f} ms ({100 * v / total:.2f}%)" for k, v in cls.items())
+        + f"; unprofiled: host enqueue {1e3 * enqueue:.6f} ms, wall "
+        f"{1e3 * wall:.6f} ms; {n_ops} aten operator calls")
+    for name, t, count in sorted(dev, key=lambda r: -r[1])[:6]:
+        log(f"[lm] {tag}   {t / 1e3:10.6f} ms ({count}x) {name[:90]}")
+    return total, cls
+
+
+def run_lm():
+    """``[lm]``: phi3-mini-3.8b at full width (see the module docstring).
+    Returns the launch counts of its prefill and forward, and its
+    numbers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import (cast_floats, forward, init_params,
+                                    make_decode_step, make_prefill_step,
+                                    model_layout)
+    from repro_torch.models import decode as dec
+    from repro_torch.models.base import tree_leaves
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params32 = init_params(model_layout(cfg), gen, cfg.param_dtype)
+    params = cast_floats(params32, cfg.compute_dtype)   # once, up front
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv} KV) of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab} ({cfg.vocab_padded} padded); {n_params} "
+        f"parameters made and cast to {cfg.compute_dtype} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    assert n_params == LM_PARAMS, n_params
+
+    def toks(b, s):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                .astype(np.int32)).to(DEVICE)
+
+    prefill = make_prefill_step(cfg, total_len=PREFILL_S + DECODE_STEPS)
+    prefill(params, {"tokens": toks(1, 128)})          # warm-up
+    tokens = toks(PREFILL_B, PREFILL_S)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = launch_counts()
+    assert launches["flash_attention_fwd"] == cfg.n_layers, launches
+    assert logits.shape == (PREFILL_B, 1, cfg.vocab_padded)
+    assert torch.isfinite(logits).all()
+    assert cache["k"].shape == (cfg.n_layers, PREFILL_B,
+                                PREFILL_S + DECODE_STEPS, cfg.n_kv, cfg.hd)
+
+    decode = make_decode_step(cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    steps = []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        tok, dl, cache = decode(params, {"cache": cache,
+                                         "tokens": tok[:, None],
+                                         "idx": PREFILL_S + i})
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        assert torch.isfinite(dl).all()
+    assert int(cache["pos"][0, -1]) == PREFILL_S + DECODE_STEPS - 1
+    steps = np.array(steps) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[lm] prefill {PREFILL_B} x {PREFILL_S} tokens: "
+        f"{1e3 * t_prefill:.6f} ms ({PREFILL_B * PREFILL_S / t_prefill:.1f} "
+        f"tokens/s), flash kernel launches {launches['flash_attention_fwd']}"
+        f"; {DECODE_STEPS} greedy decode steps at batch {PREFILL_B}: p50 "
+        f"{np.percentile(steps, 50):.6f} ms, p99 "
+        f"{np.percentile(steps, 99):.6f} ms; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    split_prefill = time_split(lambda: prefill(params, {"tokens": tokens}),
+                               "prefill")
+    split_decode = time_split(lambda: decode(params, {
+        "cache": cache, "tokens": tok[:, None],
+        "idx": PREFILL_S + DECODE_STEPS - 1}), "decode step")
+    del cache, logits
+
+    reset_launches()
+    fl, _ = forward(cfg, params, tokens=toks(1, 256))
+    torch.cuda.synchronize()
+    fwd = launch_counts()["flash_attention_fwd"]
+    assert fwd == cfg.n_layers and torch.isfinite(fl).all(), fwd
+    del fl
+
+    # the model in float32: prefill (the kernel) against token-by-token
+    # decode (plain einsums over the cache)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tokens = toks(CHECK_B, CHECK_S)
+    pl, pcache = make_prefill_step(cfg32)(params32, {"tokens": tokens})
+    dcache = dec.init_cache(cfg32, CHECK_B, CHECK_S, device=DEVICE)
+    step32 = make_decode_step(cfg32)
+    for t in range(CHECK_S):
+        _, dl, dcache = step32(params32, {"cache": dcache,
+                                          "tokens": tokens[:, t:t + 1],
+                                          "idx": t})
+    torch.cuda.synchronize()
+    real = slice(0, cfg.vocab)           # the padding logits are -1e30
+    errs = {"logits": (pl[..., real] - dl[..., real]).abs().max().item()}
+    scale = {"logits": dl[..., real].abs().max().item()}
+    for name in ("k", "v"):
+        errs[name] = (pcache[name] - dcache[name]).abs().max().item()
+        scale[name] = dcache[name].abs().max().item()
+    assert torch.equal(pcache["pos"], dcache["pos"])
+    rel = 1e-3       # float32 products of another order, 32 layers deep
+    for name, e in errs.items():
+        tol = rel * max(1.0, scale[name])
+        log(f"[lm] float32 prefill vs {CHECK_S} decode steps, {name}: "
+            f"max_abs_err {e:.6g} (tolerance {tol:.6g} = {rel} x "
+            f"max(1, max |decode| = {scale[name]:.6g}))")
+        assert np.isfinite(e) and e <= tol, (name, e, tol)
+    del params32, pcache, dcache
+    return dict(launches=launches, params=params, cfg=cfg,
+                t_prefill=t_prefill, steps=steps, peak=peak,
+                split_prefill=split_prefill, split_decode=split_decode)
+
+
+def run_serve_lm(cfg, params):
+    """``[serve:lm]``: the LM server at full width (see the module
+    docstring).  Returns its launch counts."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.pipeline import recover
+    rng = np.random.default_rng(SEED + 3)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    srv = Server(cfg, params, n_slots=8, max_len=128, index_backend="cuda",
+                 wal_dir=SERVE_DIR, device=DEVICE)
+    waiting = [Request(rid=1000 + 7 * i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(16, 49))), max_new=16)
+        for i in range(SERVE_REQUESTS)]
+    reqs = list(waiting)
+    torch.cuda.synchronize()
+    reset_launches()
+    srv.pipeline_metrics.start(time.perf_counter())
+    t0 = time.perf_counter()
+    ticks = ranges = 0
+    while waiting or srv.live:
+        if waiting and srv.free:
+            n = srv.admit(waiting[:len(srv.free)])
+            waiting = waiting[n:]
+        srv.tick()
+        ticks += 1
+        if ticks in (3, 20):     # mid-run: the table against the host
+            lo, hi = 1000 + 7 * 2, 1000 + 7 * 11
+            want = [(r, s) for r, s in srv.slot_of.items() if lo <= r <= hi]
+            got = srv.session_range(lo, hi)
+            assert got == (len(want), sum(s for _, s in want)), (got, want)
+            ranges += 1
+        assert ticks < 1000, "the server did not drain"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    srv.pipeline_metrics.stop(time.perf_counter())
+    launches = launch_counts()
+    summary = srv.pipeline_metrics.summary()
+    assert all(len(r.out) == r.max_new for r in reqs)
+    assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
+    assert int(srv.table.live_count) == 0 and ranges == 2
+    assert launches["pi_probe"] == launches["bitonic_sort"] == \
+        summary["windows"], (launches, summary["windows"])
+    assert launches["pi_range"] == ranges, launches
+    srv.close()
+    rec, tail = recover(SERVE_DIR, device=DEVICE)
+    assert same_state(rec, srv.table), "recovered table != live table"
+    n_new = sum(len(r.out) for r in reqs)
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    log(f"[serve:lm] {len(reqs)} requests ({n_prompt} prompt tokens, each "
+        f"a decode step over the 8 slots, and {n_new} new tokens) in "
+        f"{ticks} ticks, {wall:.6f} s: {len(reqs) / wall:.6f} requests/s, "
+        f"{n_new / wall:.6f} new tokens/s, {(n_new + n_prompt) / wall:.6f} "
+        f"tokens/s with the prompts; session table: {summary['windows']} "
+        f"windows, {srv.queries_processed} index queries, p50 "
+        f"{summary['p50_ms']:.6f} ms, p99 {summary['p99_ms']:.6f} ms; "
+        f"session_range twice against the host; recover replayed "
+        f"{len(tail)} windows to the live table bit for bit; kernel "
+        f"launches {launches}")
+    shutil.rmtree(SERVE_DIR)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
@@ -1313,11 +1624,26 @@ def main(argv=None) -> int:
     durable_launches = run_durable(idx_m, mixed, ycfg.batch)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 6. launch counts -------------------------------------------------
+    # -- 6. the flash kernel against its plain version --------------------
+    flash = check_flash(ITERS)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 7. the LM path: prefill and decode at full width ------------------
+    lm = run_lm()
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 8. the LM server ---------------------------------------------------
+    serve_lm_launches = run_serve_lm(lm["cfg"], lm["params"])
+    lm_launches = lm["launches"]
+    del lm
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 9. launch counts -------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
-    paths = (launches, serve_launches, durable_launches)
+    paths = (launches, serve_launches, durable_launches, lm_launches,
+             serve_lm_launches)
 
     def total(name):
         return sum(p[name] for p in paths)
@@ -1353,6 +1679,13 @@ def main(argv=None) -> int:
              ms=bitonic["ms"], plain_ms=bitonic["plain_ms"],
              bound_ms=bitonic["bound"][0], bound_by=bitonic["bound"][1],
              library_ms=bitonic["library_ms"]),
+        dict(name="flash_attention_fwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:77",
+             launches=total("flash_attention_fwd"), max_abs_err=flash["err"],
+             ms=flash["ms"], plain_ms=flash["plain_ms"],
+             bound_ms=flash["bound"][0], bound_by=flash["bound"][1],
+             library_ms=flash["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

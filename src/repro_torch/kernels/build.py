@@ -10,7 +10,7 @@ a build takes seconds.
 
 The argument types of every entry point are declared here: pointers and
 the stream are ``c_void_p`` (ctypes would otherwise pass a 32-bit int and
-cut them), sizes are ``c_int``, and every entry point returns the
+cut them), sizes are ``c_int``, scalars ``c_float``, and every entry point returns the
 ``cudaGetLastError()`` of its launch.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "pi_search": {
         "pi_search_i32": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
@@ -44,6 +44,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "bitonic_sort": {
         "bitonic_sort_i32": [_P, _P, _P, _P, _I, _P],
         "bitonic_sort_f32": [_P, _P, _P, _P, _I, _P],
+    },
+    "flash_attention": {
+        "flash_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _P],
+        "flash_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _P],
     },
 }
 

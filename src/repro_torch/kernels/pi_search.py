@@ -50,9 +50,12 @@ def reset_launch_counts() -> None:
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    """A torch dtype from a torch dtype, a numpy dtype or its name
+    (``"bfloat16"`` included, which numpy does not know)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(dtype, str):
+        return getattr(torch, dtype)
     return getattr(torch, np.dtype(dtype).name)
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.kernels.ref``: each kernel has an exact reference
 here, written independently of the kernel's own plain version; the tests
-hold the kernels and their plain versions to these bit for bit.
+hold the kernels and their plain versions to these bit for bit (the
+integer kernels) or within a stated tolerance (attention).
 """
 from __future__ import annotations
 
@@ -31,3 +32,25 @@ def bitonic_sort_ref(keys: torch.Tensor, vals: torch.Tensor):
     order = torch.argsort(vals, stable=True)
     order = order[torch.argsort(keys[order], stable=True)]
     return keys[order], vals[order]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None):
+    """Attention with the whole (Sq, Sk) score matrix materialized, in
+    float32: the naive oracle of ``tests/test_flash_kernel.py``.
+    q (B,Sq,H,D), k/v (B,Sk,KV,D), KV heads broadcast to H; query
+    positions start at 0."""
+    B, Sq, H, D = q.shape
+    rep = H // k.shape[2]
+    kk = k.float().repeat_interleave(rep, dim=2)
+    vv = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / D ** 0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)

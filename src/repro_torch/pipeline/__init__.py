@@ -16,8 +16,13 @@
               window (byte-identical to the JAX package's)
   recovery    ``Durability`` (WAL append at seal, periodic snapshots) and
               ``recover`` (latest snapshot + WAL tail replay)
+  overload    the breaker part: ``OverloadConfig``, the ``BREAKER_*``
+              states, ``ReadOnlyModeError`` (the dispatcher's rollback →
+              repack → replay)
 
-Not ported yet: overload control (ROADMAP A8), the sharded path (A9).
+Not ported yet: the rest of overload control — the shed ladder,
+``DeadlineController``, ``OverloadController``, ``RetryPolicy`` (ROADMAP
+A8) — and the sharded path (A9).
 """
 from repro_torch.pipeline.collector import (
     Collector, TRIGGER_DEADLINE, TRIGGER_FLUSH, TRIGGER_SIZE, Window,
@@ -25,9 +30,13 @@ from repro_torch.pipeline.collector import (
 )
 from repro_torch.pipeline.dispatcher import (
     DispatchOverflowError, Dispatcher, PendingOverflowError, WindowResult,
-    step_single,
+    step_recover, step_single,
 )
 from repro_torch.pipeline.metrics import LatencyHistogram, PipelineMetrics
+from repro_torch.pipeline.overload import (
+    BREAKER_CLOSED, BREAKER_POISONED, BREAKER_READ_ONLY, BREAKER_RECOVERING,
+    OverloadConfig, ReadOnlyModeError,
+)
 from repro_torch.pipeline.ranges import execute_ranges
 from repro_torch.pipeline.recovery import Durability, RecoveryError, recover
 from repro_torch.pipeline.wal import (
@@ -44,7 +53,9 @@ __all__ = [
     "Collector", "Window", "WindowConfig",
     "TRIGGER_SIZE", "TRIGGER_DEADLINE", "TRIGGER_FLUSH",
     "Dispatcher", "DispatchOverflowError", "PendingOverflowError",
-    "WindowResult", "step_single",
+    "WindowResult", "step_single", "step_recover",
+    "BREAKER_CLOSED", "BREAKER_RECOVERING", "BREAKER_READ_ONLY",
+    "BREAKER_POISONED", "OverloadConfig", "ReadOnlyModeError",
     "LatencyHistogram", "PipelineMetrics",
     "execute_ranges",
     "Durability", "RecoveryError", "recover",

@@ -23,13 +23,25 @@ execute (the rebuild that follows resets it on the state) and raises
 ``PendingOverflowError`` at retirement; the failure then poisons the
 dispatcher, so every later ``submit``/``flush`` raises it again.
 
+With an ``OverloadConfig`` whose breaker is armed, a pending overflow is
+no longer fatal: a **circuit breaker** rolls the index back to the state
+before the failing window (kept on the in-flight record; ``execute_impl``
+never writes its input, so no copy is needed), forces a full repack to
+reclaim the pending space, replays the quarantined windows through
+``step_recover`` (which rebuilds after every window), and resumes.
+Repeated trips within a rolling interval degrade to a read-only mode
+(write windows rejected with ``ReadOnlyModeError``, reads served); only
+an unrecoverable replay — an overflow from an empty pending buffer, a
+geometry error — or a trip while already read-only latches the poisoned
+state.
+
 Durability (``pipeline.recovery.Durability``): ``run`` hands the
 collector ``durability.on_seal``, so every window is in the WAL before it
 is dispatched, and ``submit`` calls ``durability.maybe_snapshot`` after
 each window's step.
 
-Not ported yet: the overload breaker with its recovery step (ROADMAP A8)
-and the sharded path (A9); the constructor refuses them.
+Not ported yet: the sharded path (ROADMAP A9); the constructor refuses
+it.
 """
 from __future__ import annotations
 
@@ -45,6 +57,10 @@ from repro_torch.core.batch import RANGE, SEARCH
 from repro_torch.kernels.pi_search import sentinel_for
 from repro_torch.pipeline.collector import Collector, Window, WindowConfig
 from repro_torch.pipeline.metrics import PipelineMetrics
+from repro_torch.pipeline.overload import (BREAKER_CLOSED, BREAKER_POISONED,
+                                           BREAKER_READ_ONLY,
+                                           BREAKER_RECOVERING,
+                                           OverloadConfig, ReadOnlyModeError)
 from repro_torch.pipeline.ranges import execute_ranges
 
 
@@ -85,6 +101,21 @@ def step_single(index: pi.PIIndex, ops, keys, vals):
         new_index, incr = pi.rebuild_tier(new_index)
     incr = torch.tensor(incr, device=new_index.device)
     return new_index, found, val, ovf, due, incr, pn
+
+
+def step_recover(index: pi.PIIndex, ops, keys, vals):
+    """The breaker's replay step: ``step_single`` with a rebuild after
+    every window → ``(new_index, found, val, ovf, pn)``.
+
+    During recovery the pending buffer must end every replayed window
+    empty — the quarantined windows were the ones that overflowed it, and
+    the ordinary threshold leaves enough residue to trip again on the
+    next one.  Off the fast path: it runs only after a breaker trip.
+    """
+    new_index, (found, val) = pi.execute_impl(index, ops, keys, vals)
+    ovf = new_index.overflow
+    pn = new_index.pn
+    return pi.rebuild(new_index), found, val, ovf, pn
 
 
 @dataclasses.dataclass
@@ -139,6 +170,10 @@ class _InFlight:
     pn: torch.Tensor        # pending fill high-water (pre-rebuild)
     rcnt: Optional[torch.Tensor] = None  # RANGE counts (pre-window state)
     rsum: Optional[torch.Tensor] = None  # RANGE value sums
+    # index state BEFORE this window's execute, which execute_impl leaves
+    # untouched; the breaker rolls back to it on a trip.  Kept only when
+    # the breaker is armed (it pins the card's memory).
+    pre_index: Optional[pi.PIIndex] = None
 
 
 class Dispatcher:
@@ -147,14 +182,12 @@ class Dispatcher:
     def __init__(self, index, *, mesh=None, depth: int = 1,
                  check_overflow: bool = True, max_span: int = 1024,
                  metrics: Optional[PipelineMetrics] = None,
-                 durability=None, overload=None, clock=time.perf_counter):
+                 durability=None,
+                 overload: Optional[OverloadConfig] = None,
+                 clock=time.perf_counter):
         if mesh is not None or not isinstance(index, pi.PIIndex):
             raise NotImplementedError(
                 "a sharded index or a mesh is not ported yet (ROADMAP A9)")
-        if overload is not None:
-            raise NotImplementedError(
-                "overload control and its breaker are not ported yet "
-                "(ROADMAP A8)")
         self._index = index
         self.depth = max(0, int(depth))
         self.check_overflow = check_overflow
@@ -164,9 +197,18 @@ class Dispatcher:
         # durability tier (pipeline.recovery.Durability): submit() calls
         # maybe_snapshot after each window, run() wires on_seal
         self.durability = durability
+        # overload tier (pipeline.overload.OverloadConfig): with a breaker
+        # armed, a pending overflow recovers (rollback + repack + replay)
+        # instead of poisoning.  None keeps the poisoning contract.
+        self.overload = overload
         self._clock = clock
         self._inflight: List[_InFlight] = []
         self._poisoned: Optional[BaseException] = None
+        self._breaker = BREAKER_CLOSED
+        self._trip_times: List[float] = []
+        self._read_only_since: Optional[float] = None
+        self.breaker_trips = 0
+        self.breaker_recoveries = 0
         self._pending_capacity = int(index.config.pending_capacity)
 
     @property
@@ -178,6 +220,42 @@ class Dispatcher:
     def poisoned(self) -> Optional[BaseException]:
         """The latched retirement failure, if any (see ``_retire_front``)."""
         return self._poisoned
+
+    @property
+    def breaker_state(self) -> str:
+        """Where the breaker sits in closed → recovering → read_only →
+        poisoned.  ``recovering`` is only visible from within a recovery
+        (e.g. a durability hook); callers see the settled state.  Reading
+        the state applies the time-based read-only decay."""
+        if self._poisoned is not None:
+            return BREAKER_POISONED
+        self._read_only_active()
+        return self._breaker
+
+    def _read_only_active(self) -> bool:
+        """Whether read-only mode is still in force, applying quiet decay:
+        a full ``recovery_interval`` without a trip closes the breaker."""
+        if self._breaker != BREAKER_READ_ONLY:
+            return False
+        if self._clock() - self._read_only_since \
+                >= self.overload.recovery_interval:
+            self.reset_breaker()
+            return False
+        return True
+
+    def reset_breaker(self):
+        """Operator override: close a read-only breaker and forget trips.
+
+        A latched poisoning is *not* resettable — it means data was lost
+        or recovery itself failed, so the index state cannot be trusted.
+        """
+        if self._poisoned is not None:
+            raise RuntimeError(
+                "cannot reset a poisoned dispatcher: the failure was "
+                "unrecoverable, the index state is not trustworthy")
+        self._breaker = BREAKER_CLOSED
+        self._trip_times.clear()
+        self._read_only_since = None
 
     # -- execution ---------------------------------------------------------
 
@@ -204,7 +282,8 @@ class Dispatcher:
         """The window's point-op image: RANGE lanes become sentinel
         SEARCHes — the exact shape of a pad slot — so the point execute
         serves range-bearing windows unchanged.  Windows without ranges
-        pass through untouched (zero-copy).
+        pass through untouched (zero-copy).  The breaker's replay masks
+        the same way, so it stays bit-identical.
         """
         ops = np.asarray(window.ops)
         is_r = ops == RANGE
@@ -215,13 +294,27 @@ class Dispatcher:
         return (np.where(is_r, SEARCH, ops).astype(ops.dtype),
                 np.where(is_r, sent, keys).astype(keys.dtype))
 
+    def _breaker_armed(self) -> bool:
+        return self.overload is not None and self.overload.breaker
+
     def submit(self, window: Window) -> List[WindowResult]:
         """Dispatch a sealed window; retire whatever exceeds the depth.
 
         Returns the windows retired by this call (possibly empty) so
         callers can stream results without a separate polling loop.
+        Raises ``ReadOnlyModeError`` for a window with writes while the
+        breaker is read-only (before anything runs).
         """
         self._check_poisoned()
+        if self._read_only_active() and self._window_has_writes(window):
+            if self.metrics is not None:
+                self.metrics.read_only_rejections += window.n_arrivals
+            raise ReadOnlyModeError(
+                f"dispatcher is read-only after {self.breaker_trips} "
+                f"breaker trips: window with writes rejected (searches "
+                f"still serve).  Retry after the breaker closes, or "
+                f"reset_breaker() to override.")
+        pre = self._index if self._breaker_armed() else None
         # ranges first, against the pre-execute state: every RANGE in the
         # window observes the index as of the window boundary
         rcnt = rsum = None
@@ -233,7 +326,8 @@ class Dispatcher:
         self._index, found, val, ovf, rebuilt, incr, pn = step_single(
             self._index, *self._tensors(ops, keys, window.vals))
         self._inflight.append(_InFlight(window, found, val, ovf, rebuilt,
-                                        incr, pn, rcnt=rcnt, rsum=rsum))
+                                        incr, pn, rcnt=rcnt, rsum=rsum,
+                                        pre_index=pre))
         if self.durability is not None:
             # the new index state reflects every window up to and
             # including this one, so window.seq is its WAL position
@@ -308,17 +402,113 @@ class Dispatcher:
         """Retire the oldest in-flight window; latch any data-loss error.
 
         A failed retirement means the index state already reflects an
-        execute that lost inserts, and every later window ran against it:
-        the failure poisons the dispatcher, the failing window stays in
-        flight, and the exception's ``windows`` lists it plus every window
-        queued behind it, so the caller can replay them elsewhere.
+        execute that lost inserts, and every later window ran against it.
+        With a breaker armed a pending overflow is *recovered* instead
+        (``_breaker_recover``).  Otherwise — or when recovery itself
+        fails — the failure poisons the dispatcher, the failing window
+        stays in flight, and the exception's ``windows`` lists it plus
+        every window queued behind it, so the caller can replay them
+        elsewhere.
         """
         try:
             res = self._retire(self._inflight[0])
-        except (PendingOverflowError, DispatchOverflowError) as e:
+        except PendingOverflowError as e:
+            if self._breaker_armed() and \
+                    self._inflight[0].pre_index is not None:
+                return self._breaker_recover(e)
             e.windows = [f.window for f in self._inflight]
             self._poisoned = e
             raise
+        except DispatchOverflowError as e:
+            e.windows = [f.window for f in self._inflight]
+            self._poisoned = e
+            raise
+        self._inflight.pop(0)
+        return res
+
+    def _breaker_recover(self, cause: PendingOverflowError) -> WindowResult:
+        """Recover from a pending overflow: rollback → repack → replay.
+
+        The overflowing execute dropped net inserts, so the post-execute
+        state is corrupt — but the state *before* the failing window is
+        still on the card (``pre_index``), and every window that executed
+        after it is still in flight with its inputs intact.  Roll back,
+        force a full repack (which empties the pending buffer, the
+        resource that overflowed), and replay every quarantined window
+        through ``step_recover``.  A replay that overflows *from an empty
+        pending buffer* is a geometry error (one window nets more inserts
+        than the whole buffer) and latches poisoned for real.
+
+        Escalation: recoveries inside one rolling ``recovery_interval``
+        beyond ``max_recoveries`` degrade the breaker to read-only; a trip
+        while *already* read-only latches poisoned — after the recovery
+        completes, so the state stays consistent for a post-mortem.
+        """
+        ocfg = self.overload
+        now = self._clock()
+        self.breaker_trips += 1
+        self._trip_times.append(now)
+        if self.metrics is not None:
+            self.metrics.breaker_trips += 1
+        was_read_only = self._breaker == BREAKER_READ_ONLY
+        self._breaker = BREAKER_RECOVERING
+        quarantined = self._inflight
+        self._inflight = []
+        # the forced reclaim: merge the pending buffer into storage and
+        # re-spread the slack, so that the replay has all of it
+        self._index = pi.repack(quarantined[0].pre_index)
+        for i, f in enumerate(quarantined):
+            w = f.window
+            # the same point view as the live submit; the range results
+            # ride along as served (they read the pre-window state, which
+            # the rollback restored)
+            ops, keys = self._point_view(w)
+            self._index, found, val, ovf, pn = step_recover(
+                self._index, *self._tensors(ops, keys, w.vals))
+            if bool(ovf):  # a host sync, off the fast path
+                err = PendingOverflowError(
+                    f"unrecoverable overflow: window nets more inserts than "
+                    f"the entire pending buffer even after a repack "
+                    f"(occupancy {w.occupancy} vs pending_capacity "
+                    f"{self._pending_capacity}) — geometry error, grow "
+                    f"PIConfig.pending_capacity above the window batch")
+                err.windows = [g.window for g in quarantined[i:]]
+                self._poisoned = err
+                raise err from cause
+            dev = self._index.device
+            self._inflight.append(_InFlight(
+                w, found, val, ovf, torch.tensor(True, device=dev),
+                torch.tensor(False, device=dev), pn, rcnt=f.rcnt,
+                rsum=f.rsum))
+        self.breaker_recoveries += 1
+        if self.metrics is not None:
+            self.metrics.breaker_recoveries += 1
+        if self.durability is not None and quarantined[-1].window.seq \
+                is not None:
+            # the quarantined windows were in the WAL before dispatch, so
+            # no acknowledged op is lost — but a snapshot taken between the
+            # corrupt execute and this recovery would hold the state before
+            # the rollback.  A fresh blocking snapshot at the replayed
+            # frontier supersedes it.
+            self.durability.snapshot(self._index,
+                                     seq=quarantined[-1].window.seq)
+        if was_read_only:
+            err = PendingOverflowError(
+                "overflow while the breaker was already read-only: the "
+                "degraded mode failed to protect the index.  State was "
+                "recovered (no data lost) but serving halts — the workload "
+                "is beyond what this geometry can absorb.")
+            err.windows = []
+            self._poisoned = err
+            raise err from cause
+        self._trip_times = [t for t in self._trip_times
+                            if now - t <= ocfg.recovery_interval]
+        if len(self._trip_times) > ocfg.max_recoveries:
+            self._breaker = BREAKER_READ_ONLY
+            self._read_only_since = now
+        else:
+            self._breaker = BREAKER_CLOSED
+        res = self._retire(self._inflight[0])
         self._inflight.pop(0)
         return res
 

@@ -26,8 +26,7 @@ replayed records.
 Contract: recovery always lands on a window boundary; it includes every
 acknowledged window (the fsync policy defines acknowledged), may include a
 fully written but unacknowledged suffix, and never replays a torn tail
-record.  The sharded kind (ROADMAP A9) and the overload breaker (A8) are
-not ported yet and are refused.
+record.  The sharded kind (ROADMAP A9) is not ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -210,13 +209,10 @@ def recover(directory: str, *, metrics=None, overload=None, device=None
     Raises ``RecoveryError`` when the directory has no metadata or no
     complete snapshot, ``WalCorruptionError`` on interior log damage (a
     torn tail is repaired by exclusion, not an error), and
-    ``NotImplementedError`` for a sharded directory (ROADMAP A9) or an
-    ``overload`` config (A8).
+    ``NotImplementedError`` for a sharded directory (ROADMAP A9).  With
+    ``overload`` the replay runs behind the breaker, as the live
+    dispatcher with that config did.
     """
-    if overload is not None:
-        raise NotImplementedError(
-            "a replay behind the overload breaker is not ported yet "
-            "(ROADMAP A8)")
     meta_path = os.path.join(directory, META_NAME)
     if not os.path.exists(meta_path):
         raise RecoveryError(f"no {META_NAME} in {directory}")
@@ -242,7 +238,7 @@ def recover(directory: str, *, metrics=None, overload=None, device=None
 
     tail = [r for r in read_wal(os.path.join(directory, "wal"))
             if r.seq > step]
-    disp = Dispatcher(index, depth=0)
+    disp = Dispatcher(index, depth=0, overload=overload)
     for rec in tail:
         disp.submit(record_window(rec))
     if metrics is not None:

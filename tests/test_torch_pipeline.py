@@ -237,15 +237,17 @@ def test_submit_leaves_the_pre_window_index_bit_identical():
 
 
 def test_dispatcher_refuses_unported_tiers():
+    """The sharded path is refused (ROADMAP A9); the overload breaker is
+    ported and its config accepted."""
     idx = tpi.build(tpi.PIConfig(capacity=64, pending_capacity=8),
                     np.arange(4, dtype=np.int32),
                     np.arange(4, dtype=np.int32), device="cpu")
-    for kw, item in ((dict(overload=object()), "A8"),
-                     (dict(mesh=object()), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpipe.Dispatcher(idx, **kw)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tpipe.Dispatcher(idx, mesh=object())
     with pytest.raises(NotImplementedError, match="A9"):
         tpipe.Dispatcher(object())
+    disp = tpipe.Dispatcher(idx, overload=tpipe.OverloadConfig())
+    assert disp.breaker_state == tpipe.BREAKER_CLOSED
 
 
 def _overflowing_window():
