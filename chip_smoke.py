@@ -47,8 +47,9 @@ operations.  Phases:
    version on the card at phi3-mini's prefill shape (8 x 2048 tokens, 32
    heads of 96, bfloat16, causal), yi-34b's heads (56 over 8 KV heads),
    MQA with a window of 64, a softcap of 50, a ragged length of 1000 at
-   head dim 256 and one float32 case, within 3e-2 in bfloat16 and 2e-3
-   in float32; device time at phi3's shape against its bound, the plain
+   head dim 256 and one float32 case, within ``CARD_TOL`` of
+   ``kernels/flash_attention.py`` (1e-3 + 2^-6 |plain| in bfloat16, 1e-5
+   in float32: what the two can differ by); device time at phi3's shape against its bound, the plain
    version and ``F.scaled_dot_product_attention`` (timed only);
 7. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
    heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
@@ -1241,8 +1242,6 @@ def check_flash(iters):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    bf16, f32 = torch.bfloat16, torch.float32
-    tol = {bf16: 3e-2, f32: 2e-3}
     err, out = 0.0, {}
     for (B, S, H, KV, D), dt, window, cap, name in FLASH_CASES:
         q = torch.randn(B, S, H, D, generator=g, device=DEVICE).to(dt)
@@ -1252,11 +1251,13 @@ def check_flash(iters):
         torch.cuda.synchronize()
         want = FA.flash_attention_fwd_plain(q, k, v, window=window,
                                             softcap=cap)
-        e = (got.float() - want.float()).abs().max().item()
-        assert np.isfinite(e) and e <= tol[dt], (name, e)
+        e, share = FA.card_error(got, want)
+        atol, rtol = FA.CARD_TOL[dt]
+        assert np.isfinite(e) and share <= 1.0, (name, e, share)
         err = max(err, e)
         log(f"[kernels:flash] {name} {(B, S, H, KV, D)} {dt}: max_abs_err "
-            f"{e:.6g} (tolerance {tol[dt]})")
+            f"{e:.6g} (tolerance {atol:g} + {rtol:g} |plain|; the largest "
+            f"error is {share:.4g} of its element's limit)")
         if name == "phi3":
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             out = dict(

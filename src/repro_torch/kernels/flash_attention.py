@@ -40,14 +40,39 @@ from repro_torch.kernels.pi_search import _raise_on
 LAUNCHES = {"flash_attention_fwd": 0}
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-KV_TILE = 64          # the kernel's key tile (32 at D = 256)
 _MASK = -1e30
 _ENTRY = {torch.bfloat16: "flash_fwd_bf16", torch.float32: "flash_fwd_f32"}
+# How far the kernel may be from its plain version on the same tensors:
+# |got - want| <= atol + rtol |want|, as (atol, rtol).  The two round at
+# the same places over the same key tiles and sum in other orders, so in
+# bfloat16 they differ by the output's rounding (one step is at most
+# 2^-7 |want|) and by a probability that rounds the other way now and
+# then; in float32 by the summation order.  chip_smoke.py prints the
+# share of these limits that each of its cases uses on the card.
+CARD_TOL = {torch.bfloat16: (1e-3, 2.0 ** -6), torch.float32: (1e-5, 0.0)}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def kv_tile(head_dim: int) -> int:
+    """The kernel's key tile at ``head_dim``: 64 keys, 32 at D = 256.  The
+    plain version walks the same tiles, so that both round the
+    probabilities to v's dtype against the same running max."""
+    return 32 if head_dim >= 256 else 64
+
+
+def card_error(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, the largest share of its ``CARD_TOL`` limit that
+    an element uses); the kernel agrees with its plain version when the
+    share is at most 1."""
+    atol, rtol = CARD_TOL[want.dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    share = err / (atol + rtol * want.abs())
+    return err.max().item(), share.max().item()
 
 
 def weak_scalar(value: float, dtype: torch.dtype) -> float:
@@ -66,10 +91,12 @@ def _scaled_q(q: torch.Tensor) -> torch.Tensor:
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
-                              q_offset: int = 0, kv_chunk: int = KV_TILE):
+                              q_offset: int = 0,
+                              kv_chunk: Optional[int] = None):
     """Online-softmax attention over key chunks of ``kv_chunk``, in plain
     PyTorch: the model's ``flash_attention`` (which calls this with its
-    chunk of 1024) and the kernel's plain version (its tile of 64).
+    chunk of 1024) and the kernel's plain version (by default its tile,
+    ``kv_tile(D)``).
 
     q: (B, Sq, H, Dk), k: (B, Sk, KV, Dk), v: (B, Sk, KV, Dv); KV heads
     broadcast to H (GQA).  ``q_offset`` is the absolute position of
@@ -79,6 +106,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     B, Sq, H, Dk = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     rep = H // KV
+    kv_chunk = kv_chunk or kv_tile(Dk)
     q = _scaled_q(q)
     qf = q.float()
     qpos = q_offset + torch.arange(Sq, device=q.device)

@@ -7,8 +7,11 @@ a pending overflow with quarantine → rollback → repack → replay (see
 ``dispatcher.Dispatcher._breaker_recover``), escalating ``closed →
 recovering → read_only → poisoned``.  ``OverloadConfig`` keeps every
 field of the JAX package's, with the same validation, because the
-serving ``Server`` arms the breaker with its defaults; the shed and
-deadline fields are inert here until their controllers are ported.
+serving ``Server`` arms the breaker with its defaults.  Only the
+breaker's fields take effect: the shed and deadline fields must keep
+their defaults, and any other value raises ``NotImplementedError``
+until their controllers are ported, so that no setting is silently
+ignored.
 
 Not ported yet (ROADMAP A8): ``AdmissionController`` (the shed ladder),
 ``DeadlineController``, ``OverloadController`` and
@@ -26,6 +29,9 @@ BREAKER_CLOSED = "closed"
 BREAKER_RECOVERING = "recovering"
 BREAKER_READ_ONLY = "read_only"
 BREAKER_POISONED = "poisoned"
+
+# the fields the port reads; the rest must keep their defaults
+BREAKER_FIELDS = ("breaker", "max_recoveries", "recovery_interval")
 
 # shed classes, cheapest information loss first
 SHED_RANGE_SUB = "range_sub"     # RANGE subsumed by a queued RANGE
@@ -92,6 +98,12 @@ class OverloadConfig:
     recovery_interval: float = 60.0
 
     def __post_init__(self):
+        derived = dict(shed_range_sub_at=min(0.4, self.shed_dup_at),
+                       shed_range_at=min(0.7, self.shed_search_at))
+        changed = [f.name for f in dataclasses.fields(self)
+                   if f.name not in BREAKER_FIELDS
+                   and getattr(self, f.name) not in (
+                       f.default, derived.get(f.name))]
         if self.shed_range_sub_at is None:
             object.__setattr__(self, "shed_range_sub_at",
                                min(0.4, self.shed_dup_at))
@@ -122,3 +134,8 @@ class OverloadConfig:
             raise ValueError(
                 f"need max_recoveries >= 0 and recovery_interval > 0, got "
                 f"{self.max_recoveries}/{self.recovery_interval}")
+        if changed:
+            raise NotImplementedError(
+                f"OverloadConfig fields {changed} drive the shed ladder and "
+                f"the deadline controller, which are not ported yet (ROADMAP "
+                f"A8); only {', '.join(BREAKER_FIELDS)} take effect")

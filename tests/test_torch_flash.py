@@ -157,6 +157,29 @@ def test_flash_wrapper_checks_and_cpu_count(rng):
         "a CPU call ran the plain version and launched nothing"
 
 
+@pytest.mark.parametrize("case", ["other order", "dropped tail",
+                                  "bfloat16 inside"])
+def test_card_tolerance_separates_right_from_wrong(rng, case):
+    """``CARD_TOL``, the bar the kernel is held to on the card, takes a
+    version that only sums the scores in another order (the head dim
+    permuted) and refuses one that drops the last partial key tile or
+    computes a float32 call in bfloat16."""
+    dt = np.float32 if case == "bfloat16 inside" else "bfloat16"
+    q, k, v = (to_torch(a, dt) for a in qkv(rng, 2, 1000, 1000, 4, 2, 96,
+                                            dt))
+    want = FA.flash_attention_fwd_plain(q, k, v)
+    if case == "other order":
+        perm = torch.from_numpy(rng.permutation(96))
+        got = FA.flash_attention_fwd_plain(q[..., perm], k[..., perm], v)
+    elif case == "dropped tail":
+        got = FA.flash_attention_fwd_plain(q, k[:, :960], v[:, :960])
+    else:
+        got = FA.flash_attention_fwd_plain(
+            *(x.to(torch.bfloat16) for x in (q, k, v))).float()
+    _, share = FA.card_error(got, want)
+    assert (share <= 1.0) == (case == "other order"), share
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -165,7 +188,8 @@ def test_flash_wrapper_checks_and_cpu_count(rng):
 def test_flash_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the card, in both
     dtypes, at every head dim, with GQA, a window, a softcap and ragged
-    lengths; one launch a call; unsupported head dims raise."""
+    lengths, within ``CARD_TOL`` (one rounding of the output); one launch
+    a call; unsupported head dims raise."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on one")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -185,9 +209,8 @@ def test_flash_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         want = FA.flash_attention_fwd_plain(q, k, v, causal=causal,
                                             window=window, softcap=cap)
-        atol = 3e-2 if dt == torch.bfloat16 else 2e-3
-        torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                                   rtol=atol)
+        e, share = FA.card_error(got, want)
+        assert share <= 1.0, (D, dt, e, share, FA.CARD_TOL[dt])
     assert FA.LAUNCHES == {"flash_attention_fwd": len(cases)}
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(*(torch.zeros(1, 8, 2, 48, device="cuda")

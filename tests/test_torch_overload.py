@@ -8,6 +8,8 @@ port's, with the same ``OverloadConfig`` and clock: the per-arrival
 results, the breaker's counters and state, the errors raised and every
 leaf of the final index must be equal, bit for bit.  ``recover`` with an
 ``overload`` config replays a durability directory behind the breaker.
+The shed and deadline fields, whose controllers are not ported, raise
+when set.
 The port runs the ``torch`` backend here, the JAX package ``xla``; the
 ``cuda`` backend is held to the same results on its plain versions.
 """
@@ -220,6 +222,23 @@ def test_overload_config_validation_matches_jax():
     assert (tov.SHED_RANGE_SUB, tov.SHED_SEARCH_DUP, tov.SHED_RANGE,
             tov.SHED_SEARCH, tov.SHED_WRITE) == \
         ("range_sub", "search_dup", "range", "search", "write")
+
+
+@pytest.mark.parametrize("field", [
+    dict(shed=False), dict(shed_dup_at=0.3), dict(shed_range_at=0.6),
+    dict(pressure_ewma=0.5), dict(adapt_deadline=False),
+    dict(latency_slo=0.01), dict(hysteresis=3)])
+def test_overload_config_refuses_unported_fields(field):
+    """A shed or deadline setting the port cannot honour raises, naming
+    its ROADMAP item, where the JAX package accepts it; the breaker's own
+    fields and a ``dataclasses.replace`` of the default are taken."""
+    import dataclasses
+    jp.OverloadConfig(**field)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tov.OverloadConfig(**field)
+    cfg = tov.OverloadConfig(breaker=False, max_recoveries=9,
+                             recovery_interval=5.0)
+    assert dataclasses.replace(cfg, breaker=True).max_recoveries == 9
 
 
 def test_recover_behind_the_breaker(tmp_path):
