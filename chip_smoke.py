@@ -47,10 +47,14 @@ operations.  Phases:
    version on the card at phi3-mini's prefill shape (8 x 2048 tokens, 32
    heads of 96, bfloat16, causal), yi-34b's heads (56 over 8 KV heads),
    MQA with a window of 64, a softcap of 50, a ragged length of 1000 at
-   head dim 256 and one float32 case, within ``CARD_TOL`` of
+   head dim 256, head dims 16, 32 and 64, lengths of 17 and 1 (below one
+   key tile), no causal mask, q/k/v views whose base is not 16-byte
+   aligned, and one float32 case, within ``CARD_TOL`` of
    ``kernels/flash_attention.py`` (1e-3 + 2^-6 |plain| in bfloat16, 1e-5
-   in float32: what the two can differ by); device time at phi3's shape against its bound, the plain
-   version and ``F.scaled_dot_product_attention`` (timed only);
+   in float32: what the two can differ by); device time and TFLOP/s of
+   the tensor-core kernel at phi3's shape and of the scalar float32
+   kernel at the float32 case, each against its bound, the plain version
+   and ``F.scaled_dot_product_attention`` in its dtype (timed only);
 7. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
    heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
    on a CUDA generator seeded with ``SEED``, cast once to bfloat16: a
@@ -123,16 +127,24 @@ DECODE_STEPS = 64                # greedy steps from the prefill's cache
 CHECK_B, CHECK_S = 2, 256        # the float32 prefill-vs-decode check
 SERVE_REQUESTS = 16              # [serve:lm] requests, 16-48 prompt tokens
 SERVE_DIR = os.path.join(ROOT, "build", "serve_wal")
-# [kernels:flash]: ((B, S, H, KV, D), dtype, window, softcap, name);
-# the first is phi3's prefill, the one timed
+# [kernels:flash]: (name, (B, S, H, KV, D), dtype, options); the first is
+# phi3's prefill, the one timed with the bfloat16 kernel, the last the
+# float32 case, timed with the scalar kernel
+_BF = torch.bfloat16
 FLASH_CASES = [
-    ((PREFILL_B, PREFILL_S, 32, 32, 96), torch.bfloat16, None, None, "phi3"),
-    ((1, 1024, 56, 8, 128), torch.bfloat16, None, None, "yi-34b GQA"),
-    ((2, 1024, 16, 1, 128), torch.bfloat16, 64, None, "MQA window 64"),
-    ((2, 1024, 32, 32, 96), torch.bfloat16, None, 50.0, "softcap 50"),
-    ((1, 1000, 16, 16, 256), torch.bfloat16, None, None,
-     "ragged S=1000 D=256"),
-    ((2, 512, 32, 32, 96), torch.float32, None, None, "float32")]
+    ("phi3", (PREFILL_B, PREFILL_S, 32, 32, 96), _BF, {}),
+    ("yi-34b GQA", (1, 1024, 56, 8, 128), _BF, {}),
+    ("MQA window 64", (2, 1024, 16, 1, 128), _BF, dict(window=64)),
+    ("softcap 50", (2, 1024, 32, 32, 96), _BF, dict(softcap=50.0)),
+    ("ragged S=1000 D=256", (1, 1000, 16, 16, 256), _BF, {}),
+    ("D=16", (2, 512, 16, 4, 16), _BF, {}),
+    ("D=32", (2, 512, 16, 4, 32), _BF, {}),
+    ("D=64", (2, 512, 16, 16, 64), _BF, {}),
+    ("S=17", (4, 17, 32, 32, 96), _BF, {}),
+    ("S=1", (8, 1, 32, 32, 96), _BF, {}),
+    ("not causal", (2, 1024, 32, 32, 96), _BF, dict(causal=False)),
+    ("unaligned views", (2, 300, 32, 32, 96), _BF, dict(unaligned=True)),
+    ("float32", (2, 512, 32, 32, 96), torch.float32, {})]
 
 
 def log(*args):
@@ -1223,34 +1235,49 @@ def run_durable(idx_m, stream, B):
 # the LM path: the flash kernel, prefill and decode, the LM server
 # ---------------------------------------------------------------------------
 
-def flash_bound(B, Sq, H, KV, D, causal=True):
+def flash_bound(B, Sq, H, KV, D, causal=True, itemsize=2,
+                ops_per_s=BF16_OPS_PER_S):
     """The least time of the attention forward: ``flash_hbm_bytes`` (q and
     out once, k and v once a head) over the HBM rate, against the
     multiply-adds of QK^T and PV that the causal mask leaves, 4 B H D
-    Sq (Sq + 1) / 2 operations, over the bfloat16 tensor-core rate."""
+    Sq (Sq + 1) / 2 operations, over the rate of the kernel's arithmetic
+    (the bfloat16 tensor cores; float32 outside them for the scalar
+    kernel).  Returns (ms, bound by, operations)."""
     from repro_torch.kernels.flash_attention import flash_hbm_bytes
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sq
-    return bound(flash_hbm_bytes(B, Sq, Sq, H, KV, D, D),
-                 4 * B * H * D * pairs, BF16_OPS_PER_S)
+    ops = 4 * B * H * D * pairs
+    return (*bound(flash_hbm_bytes(B, Sq, Sq, H, KV, D, D, itemsize), ops,
+                   ops_per_s), ops)
+
+
+def _flash_inputs(g, B, S, H, KV, D, dt, unaligned=False):
+    """q, k, v from a seeded normal; ``unaligned``: views one element into
+    their buffers, so that no base is 16-byte aligned."""
+    out = []
+    for heads in (H, KV, KV):
+        n = B * S * heads * D
+        x = torch.randn(n + unaligned, generator=g, device=DEVICE).to(dt)
+        out.append(x[int(unaligned):].view(B, S, heads, D))
+    return out
 
 
 def check_flash(iters):
     """``[kernels:flash]``: the kernel against its plain version on the
-    card at the cases of the module docstring; device times at phi3's
-    prefill shape of the kernel, its plain version and
-    ``F.scaled_dot_product_attention`` on the same tensors."""
+    card at ``FLASH_CASES``; device times of the bfloat16 kernel at phi3's
+    prefill shape and of the float32 kernel at the float32 case, beside
+    their plain version, ``F.scaled_dot_product_attention`` on the same
+    tensors and their bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     err, out = 0.0, {}
-    for (B, S, H, KV, D), dt, window, cap, name in FLASH_CASES:
-        q = torch.randn(B, S, H, D, generator=g, device=DEVICE).to(dt)
-        k = torch.randn(B, S, KV, D, generator=g, device=DEVICE).to(dt)
-        v = torch.randn(B, S, KV, D, generator=g, device=DEVICE).to(dt)
-        got = FA.flash_attention_fwd(q, k, v, window=window, softcap=cap)
+    for name, (B, S, H, KV, D), dt, opts in FLASH_CASES:
+        opts = dict(opts)
+        q, k, v = _flash_inputs(g, B, S, H, KV, D, dt,
+                                opts.pop("unaligned", False))
+        got = FA.flash_attention_fwd(q, k, v, **opts)
         torch.cuda.synchronize()
-        want = FA.flash_attention_fwd_plain(q, k, v, window=window,
-                                            softcap=cap)
+        want = FA.flash_attention_fwd_plain(q, k, v, **opts)
         e, share = FA.card_error(got, want)
         atol, rtol = FA.CARD_TOL[dt]
         assert np.isfinite(e) and share <= 1.0, (name, e, share)
@@ -1258,23 +1285,35 @@ def check_flash(iters):
         log(f"[kernels:flash] {name} {(B, S, H, KV, D)} {dt}: max_abs_err "
             f"{e:.6g} (tolerance {atol:g} + {rtol:g} |plain|; the largest "
             f"error is {share:.4g} of its element's limit)")
-        if name == "phi3":
+        if name in ("phi3", "float32"):
+            f32 = dt == torch.float32
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            out = dict(
+            timed = dict(
                 ms=device_ms(lambda: FA.flash_attention_fwd(q, k, v), iters,
-                             "flash_fwd_kernel"),
+                             "flash_f32_scalar_kernel" if f32
+                             else "flash_fwd_kernel"),
                 plain_ms=device_ms(lambda: FA.flash_attention_fwd_plain(
                     q, k, v), max(1, iters // 10)),
                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), iters),
-                bound=flash_bound(B, S, H, KV, D))
+                bound=flash_bound(B, S, H, KV, D, itemsize=q.element_size(),
+                                  ops_per_s=SCALAR_OPS_PER_S if f32
+                                  else BF16_OPS_PER_S))
+            ms, bnd = timed["ms"], timed["bound"]
+            log(f"[kernels:flash] {name} {(B, S, H, KV, D)} {dt}: kernel "
+                f"{ms:.6f} ms ({bnd[2] / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{timed['plain_ms']:.6f} ms, scaled_dot_product_attention "
+                f"{timed['library_ms']:.6f} ms; bound {bnd[0]:.6f} ms "
+                f"({bnd[1]}, {bnd[2]:.4g} operations at "
+                f"{(SCALAR_OPS_PER_S if f32 else BF16_OPS_PER_S) / 1e12:g} "
+                f"TFLOP/s); the kernel at {100 * bnd[0] / ms:.2f}% of its "
+                f"bound")
+            if name == "phi3":
+                out = timed
+            else:
+                out["f32"] = timed
         del q, k, v, got, want
     out["err"] = err
-    log(f"[kernels:flash] phi3 prefill shape: kernel {out['ms']:.6f} ms, "
-        f"plain {out['plain_ms']:.6f} ms, scaled_dot_product_attention "
-        f"{out['library_ms']:.6f} ms; bound {out['bound'][0]:.6f} ms "
-        f"({out['bound'][1]}); the kernel at "
-        f"{100 * out['bound'][0] / out['ms']:.2f}% of its bound")
     return out
 
 

@@ -13,17 +13,37 @@ The rounding follows the model function, the code this kernel replaces
 on the prefill path: q is scaled in its own dtype (``q * scale`` with the
 scale itself in q's dtype, as JAX's weakly typed scalar gives), and the
 probabilities are cast to v's dtype before the P·V product; scores, the
-softmax statistics and the accumulator are float32, the output is in q's
+softmax statistics and the accumulator are float32 (the plain version's
+scores are the exact sums rounded once to float32), the output is in q's
 dtype.  Masked scores get ``-1e30`` added, not ``-inf``.
 
 ``flash_attention_fwd`` routes by the device of its tensors: on the CPU it
 runs ``flash_attention_fwd_plain`` (the chunked online softmax in
 PyTorch, the port's counterpart of Pallas interpret mode); on the card it
-launches ``csrc/flash_attention.cu`` or raises.  The kernel tiles any
-length (``tq``/``tk`` of the TPU kernel are its own tiling now, not
-arguments that must divide S), and takes head dims 16, 32, 64, 96, 128
-and 256 in bfloat16 or float32.  Its inputs are made contiguous once by
-the wrapper (a no-op for the model's projections, which are).
+launches ``csrc/flash_attention.cu`` or raises.  The route there is fixed
+by dtype:
+
+* bfloat16 (the model's prefill): ``flash_fwd_kernel``, a Hopper kernel
+  whose tensor cores do both products (``wgmma`` from shared memory, the
+  operations being what bounds attention: 2.06e11 at phi3's prefill of
+  8 x 2048).  A block takes 128 query rows of one head; two consumer
+  warpgroups of 64 rows each run S = QK^T and O += PV, taking turns so
+  that one's products run under the other's softmax; a producer warp
+  feeds k and v tiles of ``kv_tile(D, bfloat16)`` keys (128 up to D = 96,
+  64 above) by TMA into a ring of 3 stages (2 at D = 256) of
+  ``mbarrier``-guarded shared memory, swizzled by 128 bytes where D is a
+  multiple of 64, by 64 at D = 32 and 96 and by 32 at D = 16.  Scores are
+  summed in two float32 halves over D and the softmax takes ``expf``, to
+  stay near the plain version's exactly rounded scores.
+* float32: ``flash_f32_scalar_kernel``, scalar FMAs over key tiles of 64
+  (32 at D = 256).  Its bar, 1e-5 of the plain version, admits neither
+  TF32 nor bfloat16 operands on the tensor cores.
+
+The kernels tile any length (``tq``/``tk`` of the TPU kernel are their
+own tiling now, not arguments that must divide S), and take head dims
+16, 32, 64, 96, 128 and 256.  Their inputs are made contiguous once by
+the wrapper (a no-op for the model's projections, which are), and a
+tensor whose base is not 16-byte aligned (TMA's rule) is copied.
 ``LAUNCHES`` counts the wrapper's kernel launches; CPU calls never count.
 """
 from __future__ import annotations
@@ -57,10 +77,14 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def kv_tile(head_dim: int) -> int:
-    """The kernel's key tile at ``head_dim``: 64 keys, 32 at D = 256.  The
-    plain version walks the same tiles, so that both round the
-    probabilities to v's dtype against the same running max."""
+def kv_tile(head_dim: int, dtype: torch.dtype) -> int:
+    """The kernel's key tile at ``head_dim`` and ``dtype``: in bfloat16
+    128 keys up to D = 96, 64 above (the tensor-core kernel); in float32
+    64, 32 at D = 256 (the scalar kernel).  The plain version walks the
+    same tiles, so that both round the probabilities to v's dtype against
+    the same running max."""
+    if dtype == torch.bfloat16:
+        return 128 if head_dim <= 96 else 64
     return 32 if head_dim >= 256 else 64
 
 
@@ -96,7 +120,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     """Online-softmax attention over key chunks of ``kv_chunk``, in plain
     PyTorch: the model's ``flash_attention`` (which calls this with its
     chunk of 1024) and the kernel's plain version (by default its tile,
-    ``kv_tile(D)``).
+    ``kv_tile(D, q.dtype)``).
 
     q: (B, Sq, H, Dk), k: (B, Sk, KV, Dk), v: (B, Sk, KV, Dv); KV heads
     broadcast to H (GQA).  ``q_offset`` is the absolute position of
@@ -106,9 +130,9 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     B, Sq, H, Dk = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     rep = H // KV
-    kv_chunk = kv_chunk or kv_tile(Dk)
+    kv_chunk = kv_chunk or kv_tile(Dk, q.dtype)
     q = _scaled_q(q)
-    qf = q.float()
+    qd = q.double()
     qpos = q_offset + torch.arange(Sq, device=q.device)
     m = torch.full((B, H, Sq), _MASK, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -117,7 +141,12 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
         kb = k[:, c0:c0 + kv_chunk].repeat_interleave(rep, dim=2)
         vb = v[:, c0:c0 + kv_chunk].repeat_interleave(rep, dim=2)
         kpos = c0 + torch.arange(kv_chunk, device=q.device)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.float())
+        # float32 scores rounded once from float64 sums, in which products
+        # of bf16 or float32 values are exact (and, for bf16, their sums
+        # over D): the reference takes the exact scores, since two float32
+        # sums in different orders that round a probability to v's dtype
+        # on two sides move a short row's output past CARD_TOL
+        s = torch.einsum("bqhd,bkhd->bhqk", qd, kb.double()).float()
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         mask = (kpos[None, :] <= qpos[:, None]) if causal else \
@@ -139,6 +168,12 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a fresh copy where its base is not 16-byte aligned (a
+    view that starts mid-row): TMA reads only from aligned addresses."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,7 +204,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_fwd: q, k, v on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -1,7 +1,7 @@
 """The port's flash attention against the JAX package's, on the CPU.
 
 On CPU tensors ``flash_attention_fwd`` runs its plain version (the
-chunked online softmax over the kernel's key tiles of 64).  It must
+chunked online softmax over the kernel's key tiles, ``kv_tile``).  It must
 match the JAX Pallas kernel in interpret mode and the JAX model function
 ``transformer.flash_attention`` over the matrix of
 ``tests/test_flash_kernel.py``, within that file's bars: atol 2e-3 in
@@ -159,25 +159,89 @@ def test_flash_wrapper_checks_and_cpu_count(rng):
 
 @pytest.mark.parametrize("case", ["other order", "dropped tail",
                                   "bfloat16 inside"])
-def test_card_tolerance_separates_right_from_wrong(rng, case):
+def test_card_tolerance_separates_right_from_wrong(rng, monkeypatch, case):
     """``CARD_TOL``, the bar the kernel is held to on the card, takes a
-    version that only sums the scores in another order (the head dim
-    permuted) and refuses one that drops the last partial key tile or
-    computes a float32 call in bfloat16."""
+    version that sums the scores in float32 in another order (the head dim
+    permuted; the plain version rounds exact sums) and refuses one that
+    drops the last partial key tile (keys 896..999 at the bfloat16 tile of
+    128) or computes a float32 call in bfloat16."""
     dt = np.float32 if case == "bfloat16 inside" else "bfloat16"
     q, k, v = (to_torch(a, dt) for a in qkv(rng, 2, 1000, 1000, 4, 2, 96,
                                             dt))
     want = FA.flash_attention_fwd_plain(q, k, v)
-    if case == "other order":
+    if case == "other order":   # float32 score sums, head dim permuted
+        einsum = torch.einsum
+
+        def float32_scores(eq, a, b):
+            if eq == "bqhd,bkhd->bhqk":
+                return einsum(eq, a.float(), b.float()).double()
+            return einsum(eq, a, b)
+        monkeypatch.setattr(torch, "einsum", float32_scores)
         perm = torch.from_numpy(rng.permutation(96))
         got = FA.flash_attention_fwd_plain(q[..., perm], k[..., perm], v)
-    elif case == "dropped tail":
-        got = FA.flash_attention_fwd_plain(q, k[:, :960], v[:, :960])
+    elif case == "dropped tail":     # the last, partial key tile
+        keep = 999 // FA.kv_tile(96, q.dtype) * FA.kv_tile(96, q.dtype)
+        got = FA.flash_attention_fwd_plain(q, k[:, :keep], v[:, :keep])
     else:
         got = FA.flash_attention_fwd_plain(
             *(x.to(torch.bfloat16) for x in (q, k, v))).float()
     _, share = FA.card_error(got, want)
     assert (share <= 1.0) == (case == "other order"), share
+
+
+@pytest.mark.parametrize("D", list(FA.HEAD_DIMS))
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_kv_tile_by_dtype_and_head_dim(D, dt):
+    """The key tile of each kernel: the tensor-core kernel (bfloat16) takes
+    128 keys up to D = 96 and 64 above, the scalar one (float32) 64 and 32
+    at D = 256."""
+    want = {torch.bfloat16: 128 if D <= 96 else 64,
+            torch.float32: 32 if D == 256 else 64}[dt]
+    assert FA.kv_tile(D, dt) == want
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_plain_default_chunk_is_the_kernel_tile(rng, dt):
+    """The plain version walks the kernel's own key tiles by default: at
+    phi3's head dim the bfloat16 default is the 128-key tile, not 64."""
+    npdt = "bfloat16" if dt == torch.bfloat16 else np.float32
+    q, k, v = (to_torch(a, npdt) for a in qkv(rng, 1, 300, 300, 4, 2, 96,
+                                              npdt))
+    got = FA.flash_attention_fwd_plain(q, k, v, window=100)
+    tile = FA.kv_tile(96, dt)
+    assert torch.equal(got, FA.flash_attention_fwd_plain(
+        q, k, v, window=100, kv_chunk=tile))
+    other = 64 if tile == 128 else 128
+    assert not torch.equal(got, FA.flash_attention_fwd_plain(
+        q, k, v, window=100, kv_chunk=other))
+
+
+@pytest.mark.parametrize("D", [96, 128])
+def test_plain_at_bf16_tile_matches_pallas(jx, rng, D):
+    """At the tensor-core kernel's tiles (128 keys at D = 96, 64 at
+    D = 128) the plain version still agrees with the Pallas kernel in
+    interpret mode within the bfloat16 bar, over several tiles and GQA."""
+    q, k, v = qkv(rng, 1, 256, 256, 4, 2, D, "bfloat16")
+    got = FA.flash_attention_fwd_plain(*(to_torch(a, "bfloat16")
+                                         for a in (q, k, v)))
+    want = jx.pallas(*(to_jax(jx, a, "bfloat16") for a in (q, k, v)),
+                     tq=64, tk=64, interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), atol=ATOL["bfloat16"],
+                               rtol=ATOL["bfloat16"])
+
+
+def test_unaligned_tensor_is_copied():
+    """TMA reads only 16-byte aligned bases: the wrapper hands the kernel
+    a fresh copy of a view that starts mid-row, and an aligned tensor as
+    it is."""
+    buf = torch.arange(1 + 2 * 8 * 2 * 16, dtype=torch.float32) \
+        .to(torch.bfloat16)
+    view = buf[1:].view(2, 8, 2, 16)
+    assert view.data_ptr() % 16
+    copy = FA._aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    aligned = torch.zeros(2, 8, 2, 16, dtype=torch.bfloat16)
+    assert FA._aligned(aligned) is aligned
 
 
 # ---------------------------------------------------------------------------
@@ -186,20 +250,33 @@ def test_card_tolerance_separates_right_from_wrong(rng, case):
 
 @pytest.mark.gpu
 def test_flash_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card, in both
-    dtypes, at every head dim, with GQA, a window, a softcap and ragged
-    lengths, within ``CARD_TOL`` (one rounding of the output); one launch
-    a call; unsupported head dims raise."""
+    """The CUDA kernels against their plain version on the card within
+    ``CARD_TOL``: bfloat16 (the tensor-core kernel) at every head dim,
+    lengths below one key tile (1, 17) and ragged above it, a window
+    crossing tile boundaries, a softcap, GQA with 7 query heads a KV head
+    (56 over 8), MQA, no causal mask, and q, k, v views whose base is not
+    16-byte aligned; float32 (the scalar kernel) at three head dims.  One
+    launch a call; unsupported head dims raise."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on one")
     g = torch.Generator(device="cuda").manual_seed(0)
     FA.reset_launch_counts()
+    bf = torch.bfloat16
     cases = [((2, 128, 4, 2, 32), torch.float32, True, None, None),
              ((1, 100, 4, 4, 96), torch.float32, True, None, None),
-             ((1, 200, 8, 1, 64), torch.bfloat16, True, 64, None),
-             ((1, 130, 4, 2, 128), torch.bfloat16, True, None, 50.0),
-             ((1, 300, 2, 2, 256), torch.bfloat16, True, None, None),
-             ((2, 64, 2, 2, 16), torch.float32, False, None, None)]
+             ((2, 64, 2, 2, 16), torch.float32, False, None, None),
+             ((2, 300, 4, 2, 16), bf, True, None, None),
+             ((1, 257, 4, 4, 32), bf, True, None, None),
+             ((1, 200, 8, 1, 64), bf, True, 64, None),
+             ((2, 384, 8, 8, 96), bf, True, None, None),
+             ((1, 130, 4, 2, 128), bf, True, None, 50.0),
+             ((1, 300, 2, 2, 256), bf, True, None, None),
+             ((1, 1, 4, 4, 64), bf, True, None, None),
+             ((2, 17, 4, 2, 96), bf, True, None, None),
+             ((1, 1000, 56, 8, 128), bf, True, None, None),
+             ((1, 333, 4, 4, 96), bf, False, None, None),
+             ((1, 500, 8, 2, 96), bf, True, 200, None),
+             ((1, 260, 4, 1, 256), bf, True, 100, 30.0)]
     for (B, S, H, KV, D), dt, causal, window, cap in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dt)
@@ -210,8 +287,18 @@ def test_flash_kernel_matches_plain_on_card():
         want = FA.flash_attention_fwd_plain(q, k, v, causal=causal,
                                             window=window, softcap=cap)
         e, share = FA.card_error(got, want)
-        assert share <= 1.0, (D, dt, e, share, FA.CARD_TOL[dt])
-    assert FA.LAUNCHES == {"flash_attention_fwd": len(cases)}
+        assert share <= 1.0, ((B, S, H, KV, D), dt, e, share)
+    # views one element into their buffers: 2-byte aligned, copied by
+    # the wrapper before TMA reads them
+    shape = (2, 150, 4, 64)
+    views = [torch.randn(1 + 2 * 150 * 4 * 64, generator=g, device="cuda")
+             .to(bf)[1:].view(shape) for _ in range(3)]
+    assert all(x.data_ptr() % 16 for x in views)
+    got = FA.flash_attention_fwd(*views)
+    torch.cuda.synchronize()
+    e, share = FA.card_error(got, FA.flash_attention_fwd_plain(*views))
+    assert share <= 1.0, ("misaligned", e, share)
+    assert FA.LAUNCHES == {"flash_attention_fwd": len(cases) + 1}
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(*(torch.zeros(1, 8, 2, 48, device="cuda")
                                  for _ in range(3)))
