@@ -18,9 +18,15 @@ operations.  Phases:
    and pending tombstones), with YCSB-E scans, empty and inert lanes,
    ranges below the minimum or up to INT_MAX - 1 and spans beyond the
    ``max_span`` budget; ``bitonic_sort`` on a window's keys, on keys with
-   many ties, sorted, reversed, with sentinel keys, on float32 keys, and
-   at 2^15 and 2^20 keys (its global-memory stages), with the ``cuda``
-   engine's batch sort at a ragged batch against ``torch.argsort``;
+   many ties, sorted, reversed, with sentinel keys, on float32 keys, at
+   2^15 and 2^20 keys, and over every B = 2^1 .. 2^22 in int32 and
+   float32 (ties, all equal, sorted, reversed, organ pipe, 1/8 sentinels,
+   int32 limits in both lanes, +-inf) against ``bitonic_sort_ref`` (and
+   the plain version up to 2^17); ``bitonic_argsort``, the ``cuda``
+   engine's batch sort, against its plain version and, at ragged batches
+   up to 2^22, against ``torch.argsort(stable=True)``; device time and
+   launches of a sort at 2^13, 2^15, 2^20 and 2^22 beside the argsort's,
+   the bound and an empty kernel's time;
 3. the point-op path: windows (write ratio 0.5, zipf theta 0.9) through
    ``step_single``, a two-tier ``rebuild`` (incremental), a ``repack``,
    then ``lookup`` and ``traverse``, with the ``cuda`` backend, checked
@@ -115,6 +121,9 @@ MIXED_WINDOWS = 16   # windows' worth of the mixed stream
 MIXED_PC = 1 << 14   # its pending capacity: rebuilds inside the run
 MAX_SPAN = 1024      # occupied-key budget of a RANGE
 ITERS = 200          # launches a kernel is timed over (plain version: 1/10)
+SWEEP_LOG_B = 22     # [kernels:bitonic] sorts every B = 2^1 .. 2^22
+SWEEP_PLAIN_LOG_B = 17   # ... and holds B <= 2^17 to the plain version too
+BITONIC_SIZES = (1 << 13, 1 << 15, 1 << 20, 1 << 22)   # ... and times these
 SEED = 0
 SNAPSHOT_EVERY = 8   # windows between snapshots on the durable path
 DURABLE_DIR = os.path.join(ROOT, "build", "durability")
@@ -504,15 +513,56 @@ def bitonic_bound(B: int):
     return bound(16 * B, log_b * (log_b + 1) // 2 * (B // 2))
 
 
+def sweep_inputs(rng, B, dt, sent):
+    """(name, keys, vals) of the size sweep at B lanes (numpy): ties, all
+    equal, sorted, reversed, organ pipe, 1/8 sentinel keys, int32 limits in
+    both lanes, and +-inf keys in float32."""
+    i32 = np.iinfo(np.int32)
+    ties = rng.integers(-B // 8, max(2, B // 4), B).astype(dt)
+    asc = np.sort(ties)
+    with_sent = ties.copy()
+    with_sent[rng.random(B) < 0.125] = sent
+    limits = np.array([i32.min, i32.min + 1, -1, 0, i32.max - 1, i32.max])
+    cases = [("ties", ties, None), ("equal", np.full(B, 7, dt), None),
+             ("sorted", asc, None), ("reversed", asc[::-1], None),
+             ("organ pipe", np.concatenate([asc[::2], asc[1::2][::-1]]),
+              None),
+             ("sentinels", with_sent, None),
+             ("limits", rng.choice(limits, B).astype(dt),
+              rng.choice(limits, B).astype(np.int32))]
+    if dt == np.float32:
+        inf = ties.copy()
+        inf[rng.random(B) < 0.25] = np.inf
+        inf[rng.random(B) < 0.25] = -np.inf
+        cases.append(("inf", inf, None))
+    return [(name, k, rng.permutation(B).astype(np.int32) if v is None
+             else v) for name, k, v in cases]
+
+
+def sort_device(fn, iters):
+    """(device ms, kernel launches) per call of ``fn``: the kernels whose
+    name holds ``bitonic``."""
+    dev, _ = device_events(fn, iters, operators=False)
+    rows = [(t, n) for name, t, n in dev if "bitonic" in name]
+    assert rows, "the profiler saw no bitonic kernel"
+    return (sum(t for t, _ in rows) / iters / 1e3,
+            sum(n for _, n in rows) / iters)
+
+
 def check_bitonic(rng, window_keys, iters):
     """bitonic_sort against its plain version and the oracle on the card,
     bit for bit: a window's keys with arrival values, then random values
     with many ties, sorted, reversed, with sentinel and INT_MIN keys,
-    float32 keys, and 2^15 and 2^20 pairs (the global-memory stages).  The
-    ``cuda`` engine's batch sort at a ragged batch and
-    ``sort_queries_kernel`` against ``torch.argsort(stable=True)``.  Device
-    times of the kernel, its plain version and ``torch.argsort`` on the
-    window's keys."""
+    float32 keys, and 2^15 and 2^20 pairs; then the size sweep, every
+    B = 2^1 .. 2^22 in int32 and float32 on the inputs of
+    ``sweep_inputs``, against ``bitonic_sort_ref`` and, up to 2^17, the
+    plain version.  ``bitonic_argsort`` (the ``cuda`` engine's batch sort)
+    against its plain version at the window and against
+    ``torch.argsort(stable=True)`` at ragged B, and ``sort_queries_kernel``.
+    Device times of the kernel, its plain version and ``torch.argsort`` on
+    the window's keys; at each of ``BITONIC_SIZES`` the kernel's device
+    time and launches a sort beside the argsort's, the bound, and the
+    device time of an empty kernel (the launch floor)."""
     from repro_torch.core.engine import SearchEngine
     from repro_torch.kernels import bitonic_sort as KB
     from repro_torch.kernels.ops import sort_queries_kernel
@@ -526,6 +576,21 @@ def check_bitonic(rng, window_keys, iters):
 
     def ties(n):
         return rng.integers(0, n // 4, n).astype(np.int32)
+
+    def check(name, k, v, plain=True):
+        got = KB.bitonic_sort(k, v)
+        wants = [bitonic_sort_ref(k, v)] + \
+            ([KB.bitonic_sort_plain(k, v)] if plain else [])
+        torch.cuda.synchronize()
+        err = 0
+        for want, what in zip(wants, ("oracle", "plain")):
+            as_int = [x.view(torch.int32).long() for x in got + want]
+            err = max(err, max(int((a - b).abs().max()) for a, b in
+                               zip(as_int[:2], as_int[2:])))
+            for a, b, lane in zip(got, want, ("keys", "vals")):
+                assert torch.equal(a, b), \
+                    f"bitonic_sort {lane} != {what} ({name})"
+        return err
 
     with_sent = ties(B)
     with_sent[rng.random(B) < 0.125] = sent
@@ -545,52 +610,83 @@ def check_bitonic(rng, window_keys, iters):
     for name, k, v in cases:
         if v is None:
             v = dev(rng.permutation(k.numel()).astype(np.int32))
-        got = KB.bitonic_sort(k, v)
-        want = KB.bitonic_sort_plain(k, v)
-        ref = bitonic_sort_ref(k, v)
-        torch.cuda.synchronize()
-        as_int = [x.view(torch.int32).long() for x in got + want]
-        err = max(err, max(int((a - b).abs().max()) for a, b in
-                            zip(as_int[:2], as_int[2:])))
-        for a, b, c, what in zip(got, want, ref, ("keys", "vals")):
-            assert torch.equal(a, b), f"bitonic_sort {what} != plain ({name})"
-            assert torch.equal(a, c), f"bitonic_sort {what} != oracle ({name})"
+        err = max(err, check(name, k, v))
+    n_sweep = 0
+    for log_b in range(1, SWEEP_LOG_B + 1):
+        for dt in (np.int32, np.float32):
+            for name, k, v in sweep_inputs(rng, 1 << log_b, dt,
+                                           sentinel_for(dt)):
+                err = max(err, check(f"2^{log_b} {dt.__name__} {name}",
+                                     dev(k), dev(v),
+                                     plain=log_b <= SWEEP_PLAIN_LOG_B))
+                n_sweep += 1
     keys = dev(with_sent[:8000])
     ops = torch.arange(8000, dtype=torch.int32, device=DEVICE)
     perm = SearchEngine("cuda").sort_queries(ops, keys, ops)[0]
     assert torch.equal(perm, torch.argsort(keys, stable=True)), \
         "cuda engine sort != stable argsort at B = 8000"
+    assert torch.equal(KB.bitonic_argsort(window_keys),
+                       KB.bitonic_argsort_plain(window_keys)), \
+        "bitonic_argsort != its plain version at the window"
+    ragged = tuple(n for n in (3, 100, 1000, 8191, 8193, 100_000,
+                               1_000_000, (1 << 22) - 5)
+                   if n < 1 << SWEEP_LOG_B)
+    for n in ragged:
+        for dt in (np.int32, np.float32):
+            k = dev(sweep_inputs(rng, n, dt, sentinel_for(dt))[5][1])
+            assert torch.equal(KB.bitonic_argsort(k),
+                               torch.argsort(k, stable=True)), \
+                f"bitonic_argsort != stable argsort at B = {n} ({dt})"
     perm32 = sort_queries_kernel(ops[:B // 2], keys[:B // 2], ops[:B // 2])[0]
     assert torch.equal(perm32.long(), torch.argsort(keys[:B // 2],
                                                     stable=True))
 
     v = cases[0][2]
-    k20, v20 = cases[-1][1], dev(np.arange(1 << 20, dtype=np.int32))
     plain_iters = max(iters // 10, 5)
+    ms, launches = sort_device(lambda: KB.bitonic_sort(window_keys, v), iters)
     t = dict(
-        ms=device_ms(lambda: KB.bitonic_sort(window_keys, v), iters,
-                     "bitonic"),
+        ms=ms,
         call_ms=time_ms(lambda: KB.bitonic_sort(window_keys, v), iters),
+        argsort_ms=sort_device(lambda: KB.bitonic_argsort(window_keys),
+                               iters)[0],
         plain_ms=device_ms(lambda: KB.bitonic_sort_plain(window_keys, v),
                            plain_iters),
         library_ms=device_ms(lambda: torch.argsort(window_keys, stable=True),
-                             iters),
-        big_ms=device_ms(lambda: KB.bitonic_sort(k20, v20), 20, "bitonic"),
-        big_library_ms=device_ms(lambda: torch.argsort(k20, stable=True),
-                                 20))
-    rb, rb20 = bitonic_bound(B), bitonic_bound(1 << 20)
+                             iters))
+    lib = KB.load_library("bitonic_sort")
+    floor_ms = device_ms(
+        lambda: lib.launch_floor(torch.cuda.current_stream().cuda_stream),
+        iters, "launch_floor")
+    rb = bitonic_bound(B)
     log(f"[kernels:bitonic] {len(cases)} cases (B = {B}, 2^15, 2^20; int32 "
-        f"and float32 keys) and the engine's batch sort at B = 8000: "
-        f"bit-identical to the plain version, the oracle and the stable "
-        f"argsort; max_abs_err {err}")
-    log(f"[kernels:bitonic] bitonic_sort B={B}: device {t['ms']:.6f} ms "
-        f"(per call with the host's launch {t['call_ms']:.6f} ms) | plain "
-        f"version device {t['plain_ms']:.6f} ms | torch.argsort(stable) "
-        f"device {t['library_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]}")
-    log(f"[kernels:bitonic] bitonic_sort B=2^20: device {t['big_ms']:.6f} ms "
-        f"| torch.argsort(stable) device {t['big_library_ms']:.6f} ms | "
-        f"bound {rb20[0]:.6f} ms by {rb20[1]}")
-    return dict(t, err=err, bound=rb)
+        f"and float32 keys), the size sweep ({n_sweep} cases, B = 2^1 .. "
+        f"2^{SWEEP_LOG_B}, int32 and float32; against the plain version up "
+        f"to 2^{SWEEP_PLAIN_LOG_B}), "
+        f"bitonic_argsort at the window and at B = "
+        f"{', '.join(map(str, ragged))}, the engine's batch sort at "
+        f"B = 8000: bit-identical to the plain version, the oracle and the "
+        f"stable argsort; max_abs_err {err}")
+    log(f"[kernels:bitonic] bitonic_sort B={B}: device {t['ms']:.6f} ms in "
+        f"{launches:g} launch (per call with the host's launch "
+        f"{t['call_ms']:.6f} ms) | bitonic_argsort (the engine's call) "
+        f"device {t['argsort_ms']:.6f} ms | plain version device "
+        f"{t['plain_ms']:.6f} ms | torch.argsort(stable) device "
+        f"{t['library_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]} | "
+        f"empty kernel device {floor_ms:.6f} ms")
+    sizes = {}
+    for n in BITONIC_SIZES:
+        k = dev(ties(n))
+        vn = dev(np.arange(n, dtype=np.int32))
+        reps = iters if n <= 1 << 15 else 20
+        ms, launches = sort_device(lambda: KB.bitonic_sort(k, vn), reps)
+        lib_ms = device_ms(lambda: torch.argsort(k, stable=True), reps)
+        bn = bitonic_bound(n)
+        sizes[n] = (ms, launches, lib_ms)
+        log(f"[kernels:bitonic] B=2^{n.bit_length() - 1}: device {ms:.6f} ms "
+            f"in {launches:g} launches | torch.argsort(stable) device "
+            f"{lib_ms:.6f} ms | bound {bn[0]:.6f} ms by {bn[1]} | empty "
+            f"kernel {floor_ms:.6f} ms")
+    return dict(t, err=err, bound=rb, floor_ms=floor_ms, sizes=sizes)
 
 
 class Oracle:

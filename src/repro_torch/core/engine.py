@@ -30,10 +30,11 @@ launch: descent + occupied-rank walk + pending pass), ``torch`` computes
 the same values in stock PyTorch ops.
 
 ``sort_queries`` is the batch sort of ``execute`` (the paper's Def. 3):
-``cuda`` pads the batch to a power of two and runs ``bitonic_sort`` once,
-with the arrival index in the tie-break lane; both backends give the same
-permutation.  The pending merge and the rebuilds sort with ``torch.argsort``
-on both, as the JAX package sorts them outside any Pallas kernel.
+``cuda`` runs ``bitonic_argsort`` once (the kernel pads the batch and
+puts the arrival index in the tie-break lane itself); both backends give
+the same permutation.  The pending merge and the rebuilds sort with
+``torch.argsort`` on both, as the JAX package sorts them outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import functools
 import torch
 
 from repro_torch.core.batch import sort_queries
-from repro_torch.kernels.bitonic_sort import bitonic_sort
+from repro_torch.kernels.bitonic_sort import bitonic_argsort
 from repro_torch.kernels.pi_range import pending_prefix, pi_range, wrap_i32
 from repro_torch.kernels.pi_search import (FLAG_MAIN_MATCH, FLAG_PENDING_HIT,
                                            gather_fill, pi_probe, pi_search,
@@ -125,25 +126,18 @@ class SearchEngine:
         """Stable sort of a query batch by key → (perm, ops, keys, vals)
         sorted, ``perm`` int64 (``core.batch.sort_queries``'s contract).
 
-        ``cuda`` pads the keys to the next power of two P with the
-        sentinel and the arrival index to B..P-1, runs ``bitonic_sort``
-        once on (key, arrival) and keeps the first B lanes.  That is the
-        stable argsort: the network orders key ties by arrival, and a
-        real lane holding the sentinel key has an arrival below B, so it
-        sorts ahead of every pad.  B <= 1 launches nothing.
+        ``cuda`` runs ``bitonic_argsort`` once: one C call that pads the B
+        keys inside the kernel to its network's size with lanes that sort
+        after every real one, makes the arrival index in registers as the
+        tie-break value, sorts, and writes the int64 permutation of the
+        first B lanes -- the stable argsort, since the network orders key
+        ties by arrival.  Up to 2^13 keys that is one launch of one block;
+        above, the launches of ``kernels.bitonic_sort.pass_plan``.  B <= 1
+        launches nothing.
         """
         if self.backend != "cuda":
             return sort_queries(ops, keys, vals)
-        B = keys.shape[0]
-        if B <= 1:
-            perm = torch.arange(B, device=keys.device)
-        else:
-            P = 1 << (B - 1).bit_length()
-            padded = torch.full((P,), sentinel_for(keys.dtype),
-                                dtype=keys.dtype, device=keys.device)
-            padded[:B] = keys
-            arrival = torch.arange(P, dtype=torch.int32, device=keys.device)
-            perm = bitonic_sort(padded, arrival)[1][:B].long()
+        perm = bitonic_argsort(keys)
         return perm, ops[perm], keys[perm], vals[perm]
 
     # -- torch backend -----------------------------------------------------

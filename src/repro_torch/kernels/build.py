@@ -42,8 +42,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                          _P, _P, _P, _I, _I, _I, _P, _P, _P],
     },
     "bitonic_sort": {
-        "bitonic_sort_i32": [_P, _P, _P, _P, _I, _P],
-        "bitonic_sort_f32": [_P, _P, _P, _P, _I, _P],
+        "bitonic_sort": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+        "bitonic_argsort": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+        "launch_floor": [_P],
     },
     "flash_attention": {
         "flash_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

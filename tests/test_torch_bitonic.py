@@ -138,11 +138,12 @@ def test_sort_queries_kernel_matches_jax(rng, jx, B):
     assert_pair_equal([x.numpy() for x in got], want)
 
 
-@pytest.mark.parametrize("B", [0, 1, 2, 7, 100, 1000])
+@pytest.mark.parametrize("B", [0, 1, 2, 7, 100, 1000, 8000])
 @pytest.mark.parametrize("dt", [np.int32, np.float32])
 def test_cuda_engine_sort_matches_stable_sort(rng, jx, B, dt):
-    """Padding to a power of two with the sentinel, sentinel keys in the
-    batch, ties everywhere: the permutation of the stable sort."""
+    """``bitonic_argsort``'s plain version (padding to a power of two with
+    the sentinel), sentinel keys in the batch, ties everywhere: the
+    permutation of the stable sort."""
     keys = rng.integers(0, max(2, B // 5), B).astype(dt)
     keys[rng.random(B) < 0.2] = sentinel_for(dt)
     ops = rng.integers(0, 3, B).astype(np.int32)
@@ -158,20 +159,21 @@ def test_cuda_engine_sort_matches_stable_sort(rng, jx, B, dt):
 
 
 def test_cuda_execute_sorts_once_with_the_network(rng, monkeypatch):
-    """One ``bitonic_sort`` call per execute on the cuda backend, none on
-    the torch backend, and no path to ``core.batch.sort_queries`` (the
-    stable ``torch.argsort``) from the cuda backend."""
+    """One ``bitonic_argsort`` call per execute on the cuda backend, on
+    the batch as it is (the kernel pads it), none on the torch backend,
+    and no path to ``core.batch.sort_queries`` (the stable
+    ``torch.argsort``) from the cuda backend."""
     calls = []
-    real = tengine.bitonic_sort
+    real = tengine.bitonic_argsort
 
-    def counting(keys, vals):
+    def counting(keys):
         calls.append(keys.shape[0])
-        return real(keys, vals)
+        return real(keys)
 
     def refuse(*args):
         raise AssertionError("cuda backend reached torch.argsort")
 
-    monkeypatch.setattr(tengine, "bitonic_sort", counting)
+    monkeypatch.setattr(tengine, "bitonic_argsort", counting)
     monkeypatch.setattr(tengine, "sort_queries", refuse)
     cfg = tpi.PIConfig(capacity=256, pending_capacity=64, fanout=4)
     idx = tpi.build(cfg, np.arange(0, 200, 2, dtype=np.int32),
@@ -180,11 +182,11 @@ def test_cuda_execute_sorts_once_with_the_network(rng, monkeypatch):
         ops = t(rng.integers(0, 3, B).astype(np.int32))
         keys = t(rng.integers(0, 220, B).astype(np.int32))
         idx, _ = tpi.execute(idx, ops, keys, keys)
-    assert calls == [32, 32]
+    assert calls == [1, 20, 32]
     monkeypatch.undo()
-    monkeypatch.setattr(tengine, "bitonic_sort", counting)
+    monkeypatch.setattr(tengine, "bitonic_argsort", counting)
     tpi.execute(tpi.with_backend(idx, "torch"), ops, keys, keys)
-    assert calls == [32, 32]
+    assert calls == [1, 20, 32]
 
 
 @pytest.mark.parametrize("B", [37, 64])
@@ -244,3 +246,56 @@ def test_bitonic_matches_plain_on_card(rng):
     assert torch.equal(perm, torch.argsort(keys, stable=True))
     with pytest.raises(TypeError):
         BS.bitonic_sort(k.double(), v)
+
+
+def card_inputs(rng, B, dt):
+    """(name, keys, vals) of the card sweep at B lanes: ties, all equal,
+    sorted, reversed, organ pipe, 1/8 sentinel keys, int32 limits in both
+    lanes, and +-inf keys in float32."""
+    ties = rng.integers(-B // 8, max(2, B // 4), B).astype(dt)
+    asc = np.sort(ties)
+    with_sent = ties.copy()
+    with_sent[rng.random(B) < 0.125] = sentinel_for(dt)
+    limits = np.array([I32.min, I32.min + 1, -1, 0, I32.max - 1, I32.max])
+    cases = [("ties", ties, None), ("equal", np.full(B, 7, dt), None),
+             ("sorted", asc, None), ("reversed", asc[::-1], None),
+             ("organ pipe", np.concatenate([asc[::2], asc[1::2][::-1]]),
+              None),
+             ("sentinels", with_sent, None),
+             ("limits", rng.choice(limits, B).astype(dt),
+              rng.choice(limits, B).astype(np.int32))]
+    if dt == np.float32:
+        inf = ties.copy()
+        inf[rng.random(B) < 0.25] = np.inf
+        inf[rng.random(B) < 0.25] = -np.inf
+        cases.append(("inf", inf, None))
+    return [(name, k, rng.permutation(B).astype(np.int32) if v is None
+             else v) for name, k, v in cases]
+
+
+@pytest.mark.gpu
+def test_bitonic_sweep_on_card(rng):
+    """Every B = 2^1 .. 2^22 in int32 and float32 on the card, bit for bit
+    against ``bitonic_sort_ref`` and, up to 2^17, ``bitonic_sort_plain``:
+    the one-block tiles, the padding below them and every multi-pass plan;
+    then ``bitonic_argsort`` at ragged B against the stable argsort."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernel runs only on one")
+    dev = "cuda"
+    for log_b in range(1, 23):
+        for dt in (np.int32, np.float32):
+            for name, k, v in card_inputs(rng, 1 << log_b, dt):
+                k, v = t(k).to(dev), t(v).to(dev)
+                got = BS.bitonic_sort(k, v)
+                wants = [tref.bitonic_sort_ref(k, v)]
+                if log_b <= 17:
+                    wants.append(BS.bitonic_sort_plain(k, v))
+                for want in wants:
+                    assert all(torch.equal(g, w) for g, w in
+                               zip(got, want)), (log_b, dt, name)
+    for B in (2, 3, 100, 1000, 8000, 8191, 8193, 100_000, 1_000_000,
+              (1 << 22) - 5):
+        for dt in (np.int32, np.float32):
+            keys = t(card_inputs(rng, B, dt)[5][1]).to(dev)
+            assert torch.equal(BS.bitonic_argsort(keys),
+                               torch.argsort(keys, stable=True)), (B, dt)
