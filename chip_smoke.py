@@ -17,8 +17,9 @@ operations.  Phases:
    on the fresh index and on the pending-filled one with deletes (storage
    and pending tombstones), with YCSB-E scans, empty and inert lanes,
    ranges below the minimum or up to INT_MAX - 1 and spans beyond the
-   ``max_span`` budget; ``bitonic_sort`` on a window's keys, on keys with
-   many ties, sorted, reversed, with sentinel keys, on float32 keys, at
+   ``max_span`` budget, and on one window of the YCSB-E stream's own
+   ranges on both indexes; ``bitonic_sort`` on a window's keys, on keys
+   with many ties, sorted, reversed, with sentinel keys, on float32 keys, at
    2^15 and 2^20 keys, and over every B = 2^1 .. 2^22 in int32 and
    float32 (ties, all equal, sorted, reversed, organ pipe, 1/8 sentinels,
    int32 limits in both lanes, +-inf) against ``bitonic_sort_ref`` (and
@@ -55,12 +56,15 @@ operations.  Phases:
    MQA with a window of 64, a softcap of 50, a ragged length of 1000 at
    head dim 256, head dims 16, 32 and 64, lengths of 17 and 1 (below one
    key tile), no causal mask, q/k/v views whose base is not 16-byte
-   aligned, and one float32 case, within ``CARD_TOL`` of
+   aligned, and in float32 (2, 512, 32, 32, 96) and the same paths (GQA,
+   MQA with a window, softcap, S = 1000 at D = 16 and 256, S = 17 and 1,
+   not causal, unaligned views), within ``CARD_TOL`` of
    ``kernels/flash_attention.py`` (1e-3 + 2^-6 |plain| in bfloat16, 1e-5
-   in float32: what the two can differ by); device time and TFLOP/s of
-   the tensor-core kernel at phi3's shape and of the scalar float32
-   kernel at the float32 case, each against its bound, the plain version
-   and ``F.scaled_dot_product_attention`` in its dtype (timed only);
+   in float32: what the two can differ by), each case's share of its limit
+   printed; device time and TFLOP/s of the tensor-core kernel at phi3's
+   shape and of the float32 kernel at (2, 512, 32, 32, 96), each against
+   its bound, the plain version and ``F.scaled_dot_product_attention`` in
+   its dtype (timed only);
 7. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
    heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
    on a CUDA generator seeded with ``SEED``, cast once to bfloat16: a
@@ -136,10 +140,12 @@ DECODE_STEPS = 64                # greedy steps from the prefill's cache
 CHECK_B, CHECK_S = 2, 256        # the float32 prefill-vs-decode check
 SERVE_REQUESTS = 16              # [serve:lm] requests, 16-48 prompt tokens
 SERVE_DIR = os.path.join(ROOT, "build", "serve_wal")
-# [kernels:flash]: (name, (B, S, H, KV, D), dtype, options); the first is
-# phi3's prefill, the one timed with the bfloat16 kernel, the last the
-# float32 case, timed with the scalar kernel
+# [kernels:flash]: (name, (B, S, H, KV, D), dtype, options); "phi3" is
+# phi3's prefill, the one timed with the bfloat16 kernel, "float32" the
+# case timed with the float32 kernel, and the float32 cases after it hold
+# that kernel to its bar on every path it has
 _BF = torch.bfloat16
+_F32 = torch.float32
 FLASH_CASES = [
     ("phi3", (PREFILL_B, PREFILL_S, 32, 32, 96), _BF, {}),
     ("yi-34b GQA", (1, 1024, 56, 8, 128), _BF, {}),
@@ -153,7 +159,17 @@ FLASH_CASES = [
     ("S=1", (8, 1, 32, 32, 96), _BF, {}),
     ("not causal", (2, 1024, 32, 32, 96), _BF, dict(causal=False)),
     ("unaligned views", (2, 300, 32, 32, 96), _BF, dict(unaligned=True)),
-    ("float32", (2, 512, 32, 32, 96), torch.float32, {})]
+    ("float32", (2, 512, 32, 32, 96), _F32, {}),
+    ("float32 yi-34b GQA", (1, 1024, 56, 8, 128), _F32, {}),
+    ("float32 MQA window 64", (2, 1024, 16, 1, 128), _F32, dict(window=64)),
+    ("float32 softcap 50", (2, 1024, 32, 32, 96), _F32, dict(softcap=50.0)),
+    ("float32 S=1000 D=16", (1, 1000, 16, 16, 16), _F32, {}),
+    ("float32 S=1000 D=256", (1, 1000, 16, 16, 256), _F32, {}),
+    ("float32 S=17", (4, 17, 32, 32, 96), _F32, {}),
+    ("float32 S=1", (8, 1, 32, 32, 96), _F32, {}),
+    ("float32 not causal", (2, 1024, 32, 32, 96), _F32, dict(causal=False)),
+    ("float32 unaligned views", (2, 300, 32, 32, 96), _F32,
+     dict(unaligned=True))]
 
 
 def log(*args):
@@ -452,6 +468,29 @@ def range_queries(rng, keys, n, key_space):
                  for x in (lo, hi))
 
 
+def ycsb_e_stream(ycfg, keys_np, n_windows, seed):
+    """YCSB workload E: scanproportion 0.95, insertproportion 0.05, scan
+    lengths uniform in 1..100 records (1..6400 key units at 2^24 keys over
+    2^30), zipfian requests; ``n_windows`` windows' worth of arrivals."""
+    import dataclasses
+    from repro_torch.pipeline import ArrivalConfig, make_arrivals
+    return make_arrivals(
+        ArrivalConfig(process="poisson", rate=1e6,
+                      n_arrivals=n_windows * ycfg.batch, range_frac=0.95,
+                      span_min=1, span_max=6400, seed=seed),
+        dataclasses.replace(ycfg, write_ratio=1.0), keys_np)
+
+
+def ycsb_e_lanes(ycfg, keys_np, seed):
+    """The (lo, hi) lanes ``execute_ranges`` gives ``pi_range`` for one
+    window of the YCSB-E stream: its ranges, and inert lanes for its
+    inserts."""
+    from repro_torch.pipeline.ranges import _range_lanes
+    st = ycsb_e_stream(ycfg, keys_np, 1, seed)
+    return _range_lanes(*(torch.from_numpy(x[:ycfg.batch]).to(DEVICE)
+                          for x in (st.ops, st.keys, st.keys2)), torch.int32)
+
+
 def check_range_kernel(idx, lo, hi, tag, iters):
     """pi_range against its plain version at these shapes, bit for bit;
     device times of the kernel, of the plain version and of building the
@@ -478,31 +517,32 @@ def check_range_kernel(idx, lo, hi, tag, iters):
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = max(int((a.long() - b.long()).abs().max()) for a, b in
-              zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
     for name, a, b in zip(("count", "sum"), got, want):
         assert torch.equal(a, b), f"pi_range {name} != plain ({tag})"
-    cnt = got[0]
+    cnt = want[0]
     n_tomb = int(idx.tomb.sum()), int((idx.ptomb & (torch.arange(
         idx.ptomb.numel(), device=DEVICE) < idx.pn)).sum())
     nbytes, ops, budget = range_touch(idx, tables, lo, hi, MAX_SPAN)
     rb = bound(nbytes, ops)
     plain_iters = max(iters // 10, 5)
-    t = dict(ms=device_ms(kernel, iters, "pi_range_kernel"),
+    t = dict(ms=device_ms(kernel, iters, "pi_range_group_kernel"),
              call_ms=time_ms(kernel, iters),
              plain_ms=device_ms(plain, plain_iters),
              tables_ms=device_ms(build_tables, iters))
     log(f"[kernels:{tag}] pi_range: B={lo.numel()} pn={int(idx.pn)} "
         f"tombstones storage/pending {n_tomb}; empty lanes "
         f"{int((lo > hi).sum())}; keys counted {int(cnt.sum())}, walks "
-        f"spending the budget {budget}; max_abs_err {err}; {nbytes} B "
-        f"touched")
-    log(f"[kernels:{tag}] pi_range: device {t['ms']:.6f} ms (per call with "
-        f"the host's launch {t['call_ms']:.6f} ms) | rank, dense2slot and "
-        f"prefix tables: device {t['tables_ms']:.6f} ms | plain version "
-        f"device {t['plain_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]}")
-    assert budget > 0 and int(cnt.sum()) > 0, "ranges too narrow"
-    return dict(t, err=err, bound=rb)
+        f"spending the budget {budget}; equal to the plain version, "
+        f"max_abs_err {err}; {nbytes} B touched")
+    log(f"[kernels:{tag}] pi_range: device {t['ms']:.6f} ms at "
+        f"{KR.RANGE_GROUP} lanes a query (per call with the host's launch "
+        f"{t['call_ms']:.6f} ms) | rank, dense2slot and prefix tables: "
+        f"device {t['tables_ms']:.6f} ms | plain version device "
+        f"{t['plain_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]}")
+    assert int(cnt.sum()) > 0, "ranges too narrow"
+    return dict(t, err=err, bound=rb, budget=budget)
 
 
 def bitonic_bound(B: int):
@@ -848,6 +888,9 @@ def profile_serving(idx, windows, window_ms, top=12):
     log(f"[profile:serve] {n} windows: device {busy:.6f} ms a window, "
         f"{100 * busy / window_ms:.2f}% of the unprofiled mean window "
         f"{window_ms:.6f} ms")
+    rng_us = sum(t for name, t, _ in dev if "pi_range_group_kernel" in name)
+    log(f"[profile:serve] pi_range: {rng_us / n / 1e3:.6f} ms a window, "
+        f"{100 * rng_us / n / 1e3 / busy:.2f}% of its device time")
     for title, rows in (("kernel", dev), ("operator", ops)):
         for name, t, count in sorted(rows, key=lambda r: -r[1])[:top]:
             log(f"[profile:serve] {title} {t / n / 1e3:10.6f} ms a window "
@@ -993,23 +1036,12 @@ def run_serving(args, idx0, keys_np, ycfg, base, idx_m, mixed):
     through ``Dispatcher.run``, each checked against the pre-window
     oracle; the YCSB-E stream again with the ``torch`` backend.  Returns
     the YCSB-E run's launch counts."""
-    import dataclasses
     from repro_torch import core as pi
-    from repro_torch.pipeline import (ArrivalConfig, Collector,
-                                      PipelineMetrics, WindowConfig,
-                                      make_arrivals)
+    from repro_torch.pipeline import Collector, PipelineMetrics, WindowConfig
     B = ycfg.batch
-    # YCSB workload E: scanproportion 0.95, insertproportion 0.05, scan
-    # lengths uniform in 1..100 records (1..6400 key units at 2^24 keys
-    # over 2^30), zipfian requests
-    ycfg_e = dataclasses.replace(ycfg, write_ratio=1.0)
 
     def ycsb_e(n_windows, seed):
-        return make_arrivals(
-            ArrivalConfig(process="poisson", rate=1e6,
-                          n_arrivals=n_windows * B, range_frac=0.95,
-                          span_min=1, span_max=6400, seed=seed),
-            ycfg_e, keys_np)
+        return ycsb_e_stream(ycfg, keys_np, n_windows, seed)
 
     for backend in ("cuda", "torch"):   # warm-up: first-call costs
         serve(pi.with_backend(idx0, backend), ycsb_e(2, SEED + 9), B)
@@ -1337,7 +1369,7 @@ def flash_bound(B, Sq, H, KV, D, causal=True, itemsize=2,
     out once, k and v once a head) over the HBM rate, against the
     multiply-adds of QK^T and PV that the causal mask leaves, 4 B H D
     Sq (Sq + 1) / 2 operations, over the rate of the kernel's arithmetic
-    (the bfloat16 tensor cores; float32 outside them for the scalar
+    (the bfloat16 tensor cores; float32 outside them for the float32
     kernel).  Returns (ms, bound by, operations)."""
     from repro_torch.kernels.flash_attention import flash_hbm_bytes
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sq
@@ -1386,7 +1418,7 @@ def check_flash(iters):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             timed = dict(
                 ms=device_ms(lambda: FA.flash_attention_fwd(q, k, v), iters,
-                             "flash_f32_scalar_kernel" if f32
+                             "flash_f32_kernel" if f32
                              else "flash_fwd_kernel"),
                 plain_ms=device_ms(lambda: FA.flash_attention_fwd_plain(
                     q, k, v), max(1, iters // 10)),
@@ -1685,6 +1717,13 @@ def main(argv=None) -> int:
     lo, hi = range_queries(rng, keys_np, ycfg.batch, ycfg.key_space)
     range_timing = check_range_kernel(filled, lo, hi, "pending-filled+deletes",
                                       ITERS)
+    assert range_fresh["budget"] > 0 and range_timing["budget"] > 0, \
+        "no check lane spends the walk's budget"
+    lo, hi = ycsb_e_lanes(ycfg, keys_np, SEED + 5)
+    range_ycsb = check_range_kernel(idx0, lo, hi, "ycsb-e window, fresh",
+                                    ITERS)
+    range_ycsb_p = check_range_kernel(
+        filled, lo, hi, "ycsb-e window, pending-filled+deletes", ITERS)
     del filled
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     window_keys = torch.from_numpy(data.ycsb_batch(ycfg, keys_np, 0)[1])
@@ -1804,7 +1843,8 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/pi_range.cu",
              replaces="src/repro/kernels/pi_range.py:112",
              launches=total("pi_range"),
-             max_abs_err=max(range_fresh["err"], range_timing["err"]),
+             max_abs_err=max(range_fresh["err"], range_timing["err"],
+                             range_ycsb["err"], range_ycsb_p["err"]),
              ms=range_timing["ms"], plain_ms=range_timing["plain_ms"],
              bound_ms=range_timing["bound"][0],
              bound_by=range_timing["bound"][1], library_ms=None),

@@ -72,12 +72,34 @@
 //   softmax.  No product is issued under a branch (the first tile is
 //   peeled), which would make ptxas serialize the wgmmas.
 //
-// float32: flash_f32_scalar_kernel, scalar FMAs.  Its bar against the
-// plain version, 1e-5, admits neither TF32 nor bf16 operands, so it keeps
-// the first port's design: one block of 256 threads per (64 query rows,
-// head, batch row), key tiles of 64 (32 at D = 256) staged as float32 in
-// shared memory, a register tile of scores and outputs per thread, the row
-// statistics shuffled over a half-warp.  Only the float32 model takes it.
+// float32: flash_f32_kernel<D>, FFMAs on the CUDA cores.  Its bar against
+// the plain version, 1e-5, admits neither TF32 nor bf16 operands, so the
+// products stay scalar.  What bounds them is shared memory: a 16-byte read
+// costs a quarter warp's wavefront whatever it broadcasts, so a warp pays
+// one wavefront for each float a lane reads, and the SM's 128 FMAs a clock
+// need 4 FMAs for each float read (the first port's kernel did 2.67 in S:
+// a 4 x 4 tile, synchronous tile loads between two barriers).  Here:
+// * One block of 256 threads per (128 query rows, head, batch row); 64 rows
+//   at D = 128 and 256, to fit shared memory.  A lane owns 8 rows (4) and
+//   8 keys of a 64-key tile (4 of 32 at D = 256) for S, over one half of
+//   d: a d reads 8 + 8 floats for 64 FMAs; each half then takes half of
+//   the keys, the other half's partial sums of them coming by a shuffle.  For O += PV it owns the same rows and D / 8 columns over
+//   one half of the keys: a key reads 8 + 12 floats for 96 FMAs (D = 96);
+//   the halves' O are added once, at the end.
+// * q is scaled once (q * scale rounded to float32, as before) into shared
+//   memory, transposed; k and v tiles (kv_tile(D, float32): 64 keys, 32 at
+//   D = 256) go by cp.async into two stages, so tile t + 1 loads while
+//   tile t computes and a tile costs one block barrier.  Keys past Sk
+//   arrive as zeros.
+// * p goes through shared memory, transposed, but only within its row
+//   group's warp: a __syncwarp, not a barrier, stands between the softmax
+//   and P.V.
+// * The -1e30 mask (only on tiles that need it), __expf and the running
+//   max are the first port's; l is summed per thread and over the row
+//   group at the end.  A warp skips a causal tile that lies wholly after
+//   its rows (it would change nothing).  The query tile is the grid's
+//   slowest dimension, counted down, so that every head's heaviest causal
+//   tiles start first.  Only the float32 model takes it.
 //
 // Interface: plain C entry points that launch on the caller's stream, do
 // not synchronise, and return cudaGetLastError() of the launch (or the
@@ -578,181 +600,329 @@ static int launch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs
+// float32: scalar FMAs, double-buffered by cp.async
 // ---------------------------------------------------------------------------
 
-constexpr int FA_THREADS = 256;
-constexpr int FA_BQ = 64;               // query rows of a block
-constexpr int FA_QS = FA_BQ + 4;        // row stride of the transposed q tile
+// The shape of the float32 kernel at head dim D.  A block of NT = 256
+// threads takes BQ = 16 TM query rows; a thread is (h, rg, cg): half h of
+// the head dim for S and of the key tile for O, row group rg (rows
+// rg TM .. rg TM + TM - 1), lane cg of 8 in the group (keys cg + 8 j of a
+// tile, TN of them; output columns VW cg + 8 VW c + e, DC of them).  Lane
+// bits: cg the lowest three, then the low bit of rg, then h, so that a
+// row group's 16 threads sit in one warp.  q and p are kept transposed in
+// shared memory ([d][row], [key][row]: a thread's TM rows are one or two
+// float4), k and v as they come ([key][d]); rows QTS = BQ + 4 and QS =
+// D + 4 floats apart keep the lanes of a read on different banks.
+template <int D>
+struct F32Shape {
+  static constexpr int NT = 256;                 // threads of a block
+  static constexpr int BK = D >= 256 ? 32 : 64;  // keys of a tile: kv_tile
+  static constexpr int TM = D >= 128 ? 4 : 8;    // query rows a thread
+  static constexpr int BQ = 16 * TM;
+  static constexpr int TN = BK / 8;
+  static constexpr int DC = D / 8;
+  static constexpr int VW = DC % 4 == 0 ? 4 : 2;
+  static constexpr int QTS = BQ + 4;
+  static constexpr int QS = D + 4;
+  // q^T [D][QTS], k and v [2][BK][QS] each, p^T [BK][QTS]
+  static constexpr int SMEM = 4 * (D * QTS + 4 * BK * QS + BK * QTS);
+  static_assert(BQ * QS <= 4 * BK * QS, "the O exchange reuses k and v");
+};
 
-__device__ __forceinline__ float half_warp_max(float x) {
+// 16 bytes from global to shared memory, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// VW consecutive floats of shared memory into x[0..VW), and back.
+template <int VW>
+__device__ __forceinline__ void lds(float* x, const float* p) {
+  if constexpr (VW == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else {
+    static_assert(VW == 2, "VW: 2 or 4");
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void sts(float* p, const float* x) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+
+// max and sum over the 8 lanes of a row group's half (lane bits 0-2)
+__device__ __forceinline__ float group8_max(float x) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 4; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
+__device__ __forceinline__ float group8_sum(float x) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 4; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-template <int D, int BK>
-constexpr int smem_floats() {
-  // q^T [D][FA_QS], k^T [D][BK + 4], v [BK][D], p [FA_BQ][BK + 4]
-  return D * FA_QS + D * (BK + 4) + BK * D + FA_BQ * (BK + 4);
-}
-
-template <int D, int BK>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_f32_scalar_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out,
-                        int Sq, int Sk, int H, int KV, int causal, int window,
-                        float softcap, float scale) {
-  constexpr int KS = BK + 4;   // row stride of k^T and of p
-  constexpr int CK = BK / 16;  // score columns a thread owns
-  constexpr int NC = D / 16;   // output columns a thread owns
+template <int D>
+__global__ void __launch_bounds__(F32Shape<D>::NT, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 int Sq, int Sk, int H, int KV, int causal, int window,
+                 float softcap, float scale) {
+  using Sh = F32Shape<D>;
+  constexpr int BK = Sh::BK, BQ = Sh::BQ, TM = Sh::TM, TN = Sh::TN;
+  constexpr int DC = Sh::DC, VW = Sh::VW, QTS = Sh::QTS, QS = Sh::QS;
+  constexpr int CH = D / 4;  // 16-byte chunks of a row of k or v
   extern __shared__ __align__(16) float smem[];
-  float* sq = smem;              // [D][FA_QS]
-  float* sk = sq + D * FA_QS;    // [D][KS]
-  float* sv = sk + D * KS;       // [BK][D]
-  float* sp = sv + BK * D;       // [FA_BQ][KS]
+  float* sqt = smem;               // [D][QTS]
+  float* sk = sqt + D * QTS;       // [2][BK][QS]
+  float* sv = sk + 2 * BK * QS;    // [2][BK][QS]
+  float* spt = sv + 2 * BK * QS;   // [BK][QTS]
 
   const int tid = threadIdx.x;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int lane = tid & 31;
+  const int cg = lane & 7;
+  const int half = (lane >> 4) & 1;
+  const int rg = 2 * (tid >> 5) + ((lane >> 3) & 1);
+  const int r0 = rg * TM;  // this thread's first row in the block
+  // every head's heaviest causal tiles first: the query tile is the grid's
+  // slowest dimension, counted down
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int kvh = h / (H / KV);
-  const int q0 = qt * FA_BQ;
-  const int r0 = (tid / 16) * 4;  // this thread's first row in the tile
-  const int cg = tid % 16;        // its lane within the row group
-
-  for (int i = tid; i < FA_BQ * D; i += FA_THREADS) {
-    const int r = i / D, d = i % D;
-    const int s = q0 + r;
-    float x = 0.f;
-    if (s < Sq) x = q[((long long)(b * (long long)Sq + s) * H + h) * D + d] * scale;
-    sq[d * FA_QS + r] = x;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = FA_MASK;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  const int q0 = qt * BQ;
 
   // the key tiles any row of this query tile can see
-  const int q_last = min(q0 + FA_BQ, Sq) - 1;
+  const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_begin / BK;
   const int t_end = (k_end + BK - 1) / BK;
 
+  auto load_kv = [&](int t, int stage) {
+    float* dk = sk + stage * BK * QS;
+    float* dv = sv + stage * BK * QS;
+    for (int c = tid; c < BK * CH; c += Sh::NT) {
+      const int key = c / CH, d = 4 * (c % CH);
+      const int s = t * BK + key;
+      const bool ok = s < Sk;
+      const long long off =
+          ok ? ((long long)(b * (long long)Sk + s) * KV + kvh) * D + d : 0;
+      cp_async16(dk + key * QS + d, k + off, ok);
+      cp_async16(dv + key * QS + d, v + off, ok);
+    }
+  };
+  if (t_begin < t_end) load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // q, scaled and rounded to float32, transposed, while the first tile
+  // loads; every load is in flight before the first store
+  constexpr int QN = BQ * CH / Sh::NT;
+  static_assert(QN * Sh::NT == BQ * CH, "q tile in whole rounds");
+  float4 qx[QN];
+#pragma unroll
+  for (int n = 0; n < QN; ++n) {
+    const int c = tid + n * Sh::NT;
+    const int s = q0 + c % BQ, d = 4 * (c / BQ);
+    qx[n] = s < Sq ? __ldg(reinterpret_cast<const float4*>(
+                         q + ((long long)(b * (long long)Sq + s) * H + h) *
+                                 D + d))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int n = 0; n < QN; ++n) {
+    const int c = tid + n * Sh::NT;
+    const int r = c % BQ, d = 4 * (c / BQ);
+    sqt[(d + 0) * QTS + r] = qx[n].x * scale;
+    sqt[(d + 1) * QTS + r] = qx[n].y * scale;
+    sqt[(d + 2) * QTS + r] = qx[n].z * scale;
+    sqt[(d + 3) * QTS + r] = qx[n].w * scale;
+  }
+
+  float m[TM], l[TM], acc[TM][DC];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = FA_MASK;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+  const int warp_rows = 2 * TM * (tid >> 5) + 2 * TM - 1;  // its last row
+  const int d0 = half * (D / 2);        // this thread's half of d in S
+  const int kh = half * (BK / 2);       // and of the keys in P.V
+  const int jh = half * (TN / 2);       // and of its keys in the softmax
+
   for (int t = t_begin; t < t_end; ++t) {
-    const int kb = t * BK;
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    for (int i = tid; i < BK * D; i += FA_THREADS) {
-      const int c = i / D, d = i % D;
-      const int s = kb + c;
-      float kx = 0.f, vx = 0.f;
-      if (s < Sk) {
-        const long long off = ((long long)(b * (long long)Sk + s) * KV + kvh) * D + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      sk[d * KS + c] = kx;
-      sv[c * D + d] = vx;
-    }
+    const int stage = (t - t_begin) & 1;
+    // tile t has landed for every thread, and every thread is done with
+    // tile t - 1, whose stage the next load takes: one barrier a tile
+    cp_async_wait_all();
     __syncthreads();
+    if (t + 1 < t_end) load_kv(t + 1, stage ^ 1);
+    cp_async_commit();
+    const float* kt = sk + stage * BK * QS + cg * QS;
+    const float* vt = sv + stage * BK * QS + VW * cg;
+    const int kb = t * BK;
+    // a tile whose every key comes after every row of this warp changes
+    // nothing there (p = 0, corr = 1: the rows have seen their diagonal)
+    if (causal && kb > q0 + warp_rows) continue;
 
-    float sc[4][CK];
+    // S = Q K^T over this thread's half of d: an outer product of TM rows
+    // and TN keys for each d (float4 of q^T, float2 of k a step of two);
+    // then the two halves' sums are added across lanes 16 apart
+    float sc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&sq[d * FA_QS + r0]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      float kv[CK];
-      if constexpr (CK == 4) {
-        const float4 ka = *reinterpret_cast<const float4*>(&sk[d * KS + cg * 4]);
-        kv[0] = ka.x; kv[1] = ka.y; kv[2] = ka.z; kv[3] = ka.w;
-      } else {
-        const float2 ka = *reinterpret_cast<const float2*>(&sk[d * KS + cg * 2]);
-        kv[0] = ka.x; kv[1] = ka.y;
-      }
+      for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
+#pragma unroll 1
+    for (int d = d0; d < d0 + D / 2; d += 2) {
+      float qa[2][TM], ka[TN][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int j = 0; j < CK; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        for (int i = 0; i < TM; i += 4)
+          lds<4>(qa[e] + i, sqt + (d + e) * QTS + r0 + i);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) lds<2>(ka[j], kt + j * 8 * QS + d);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            sc[i][j] = fmaf(qa[e][i], ka[j][e], sc[i][j]);
     }
-
+    // each half keeps the keys cg + 8 (jh + j), j < TN / 2, and adds the
+    // other half's sum of them: one shuffle for two partial scores
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN / 2; ++j) {
+        const float mine = half ? sc[i][TN / 2 + j] : sc[i][j];
+        const float theirs = half ? sc[i][j] : sc[i][TN / 2 + j];
+        sc[i][j] = mine + __shfl_xor_sync(0xffffffffu, theirs, 16);
+      }
+
+    // the online softmax over the row group's 16 threads, each holding
+    // TN / 2 keys of a row: the max over all of them, p of its own; l is
+    // summed per thread here and over the 16 at the end
+    const bool masked = kb + BK > Sk || (causal && kb + BK - 1 > q0) ||
+                        window > 0;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
       const int qpos = q0 + r0 + i;
       float mx = FA_MASK;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kpos = kb + cg * CK + j;
+      for (int j = 0; j < TN / 2; ++j) {
         float x = sc[i][j];
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool keep = kpos < Sk;
-        if (causal) keep = keep && kpos <= qpos;
-        if (window > 0) keep = keep && kpos > qpos - window;
-        x += keep ? 0.f : FA_MASK;
+        if (masked) {
+          const int kpos = kb + cg + 8 * (jh + j);
+          bool keep = kpos < Sk;
+          if (causal) keep = keep && kpos <= qpos;
+          if (window > 0) keep = keep && kpos > qpos - window;
+          x += keep ? 0.f : FA_MASK;
+        }
         sc[i][j] = x;
         mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      mx = group8_max(mx);
+      const float m_new =
+          fmaxf(m[i], fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16)));
       const float corr = __expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
+      for (int j = 0; j < TN / 2; ++j) {
         const float p = __expf(sc[i][j] - m_new);
         psum += p;
-        sp[(r0 + i) * KS + cg * CK + j] = p;
+        sc[i][j] = p;
       }
-      l[i] = l[i] * corr + half_warp_sum(psum);
+      l[i] = l[i] * corr + psum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
     }
-    __syncthreads();  // p complete
-
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float pr[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pa = *reinterpret_cast<const float4*>(&sp[(r0 + i) * KS + kk]);
-        pr[i][0] = pa.x; pr[i][1] = pa.y; pr[i][2] = pa.z; pr[i][3] = pa.w;
+    for (int j = 0; j < TN / 2; ++j)
+#pragma unroll
+      for (int i = 0; i < TM; i += 4) {
+        const float p4[4] = {sc[i][j], sc[i + 1][j], sc[i + 2][j],
+                             sc[i + 3][j]};
+        sts<4>(spt + (cg + 8 * (jh + j)) * QTS + r0 + i, p4);
       }
+    // a row's p comes from the 16 threads of its row group, in this warp
+    __syncwarp();
+
+    // O += P V over this thread's half of the keys: an outer product of TM
+    // rows and DC columns a key
+#pragma unroll 4
+    for (int kk = kh; kk < kh + BK / 2; ++kk) {
+      float pa[TM], vv[DC];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int i = 0; i < TM; i += 4) lds<4>(pa + i, spt + kk * QTS + r0 + i);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float vv = sv[(kk + u) * D + cg + 16 * c];
+      for (int c = 0; c < DC / VW; ++c)
+        lds<VW>(vv + c * VW, vt + kk * QS + 8 * VW * c);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pr[i][u], vv, acc[i][c]);
-        }
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pa[i], vv[c], acc[i][c]);
     }
   }
 
+  // O = the two halves' sums over the keys: half 1 hands its partial sums
+  // to half 0 through the k/v stages, which no tile needs any more
+  cp_async_wait_all();
+  __syncthreads();
+  float* so = sk;  // [BQ][QS]
+  if (half) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < DC / VW; ++c)
+        sts<VW>(so + (r0 + i) * QS + VW * cg + 8 * VW * c, acc[i] + c * VW);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+    l[i] = group8_sum(l[i] + __shfl_xor_sync(0xffffffffu, l[i], 16));
+  if (half) return;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
     const int s = q0 + r0 + i;
     if (s >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* row = out + ((long long)(b * (long long)Sq + s) * H + h) * D;
+    float* row = out + ((long long)(b * (long long)Sq + s) * H + h) * D +
+                 VW * cg;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[cg + 16 * c] = acc[i][c] / denom;
+    for (int c = 0; c < DC / VW; ++c) {
+      float o[VW];
+      lds<VW>(o, so + (r0 + i) * QS + VW * cg + 8 * VW * c);
+#pragma unroll
+      for (int e = 0; e < VW; ++e) o[e] = (acc[i][c * VW + e] + o[e]) / denom;
+      sts<VW>(row + 8 * VW * c, o);
+    }
   }
 }
 
@@ -761,14 +931,13 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
                       int B, int Sq, int Sk, int H, int KV, int causal,
                       int window, float softcap, float scale,
                       cudaStream_t stream) {
-  constexpr int BK = D >= 256 ? 32 : 64;
-  constexpr int bytes = smem_floats<D, BK>() * (int)sizeof(float);
-  auto kernel = flash_f32_scalar_kernel<D, BK>;
+  using Sh = F32Shape<D>;
+  auto kernel = flash_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, H, B);
-  kernel<<<grid, FA_THREADS, bytes, stream>>>(
+  dim3 grid(H, B, (Sq + Sh::BQ - 1) / Sh::BQ);
+  kernel<<<grid, Sh::NT, Sh::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
       causal, window, softcap, scale);

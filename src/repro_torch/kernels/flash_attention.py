@@ -35,9 +35,13 @@ by dtype:
   multiple of 64, by 64 at D = 32 and 96 and by 32 at D = 16.  Scores are
   summed in two float32 halves over D and the softmax takes ``expf``, to
   stay near the plain version's exactly rounded scores.
-* float32: ``flash_f32_scalar_kernel``, scalar FMAs over key tiles of 64
-  (32 at D = 256).  Its bar, 1e-5 of the plain version, admits neither
-  TF32 nor bfloat16 operands on the tensor cores.
+* float32: ``flash_f32_kernel``, FFMAs on the CUDA cores (its bar, 1e-5 of
+  the plain version, admits neither TF32 nor bfloat16 operands on the
+  tensor cores).  A block of 256 threads takes 128 query rows (64 at
+  D >= 128); each half warp owns 8 of them (4), so that every float4 read
+  from shared memory feeds 8 to 32 FMAs; k and v tiles of
+  ``kv_tile(D, float32)`` keys (64, 32 at D = 256) go by ``cp.async`` into
+  two stages, the next tile loading while one computes.
 
 The kernels tile any length (``tq``/``tk`` of the TPU kernel are their
 own tiling now, not arguments that must divide S), and take head dims
@@ -80,7 +84,7 @@ def reset_launch_counts() -> None:
 def kv_tile(head_dim: int, dtype: torch.dtype) -> int:
     """The kernel's key tile at ``head_dim`` and ``dtype``: in bfloat16
     128 keys up to D = 96, 64 above (the tensor-core kernel); in float32
-    64, 32 at D = 256 (the scalar kernel).  The plain version walks the
+    64, 32 at D = 256 (the FFMA kernel).  The plain version walks the
     same tiles, so that both round the probabilities to v's dtype against
     the same running max."""
     if dtype == torch.bfloat16:

@@ -17,6 +17,11 @@ Two things differ from the TPU kernel, with the same results
   the JAX kernel takes;
 * the walk stops at the first key above ``hi``: keys ascend with rank.
 
+The kernel serves each query with a group of ``RANGE_GROUP`` lanes (a
+constant of ``csrc/pi_range.cu``): the descent reads a level's F keys at
+once, the walk reads that many ranks a round, and both pending bounds are
+a ``RANGE_GROUP``-ary search (``group_bounds_plain`` is its model).
+
 ``pi_range`` routes by the device of its tensors: a CPU tensor runs
 ``pi_range_plain`` (the port's counterpart of Pallas interpret mode); a
 CUDA tensor launches the kernel or raises.  Sums wrap modulo 2^32, as the
@@ -31,11 +36,12 @@ import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.pi_search import (_check_launch_args, _descend,
-                                           _level_args, _lower_bound,
-                                           _raise_on, derive_levels,
-                                           gather_fill, sentinel_for)
+                                           _level_args, _raise_on,
+                                           derive_levels, gather_fill,
+                                           sentinel_for)
 
 LAUNCHES = {"pi_range": 0}
+RANGE_GROUP = 32   # lanes a query: PI_RANGE_GROUP of csrc/pi_range.cu
 
 
 def reset_launch_counts() -> None:
@@ -63,6 +69,32 @@ def pending_prefix(pvals: torch.Tensor, plive: torch.Tensor):
     return pcnt.to(torch.int32), wrap_i32(psum)
 
 
+def group_bounds_plain(sorted_keys: torch.Tensor, q: torch.Tensor,
+                       right: bool = False, group: int = RANGE_GROUP):
+    """#{i : sorted_keys[i] < q} per lane (``right``: <= q), by the kernel's
+    ``group``-ary search (``group_bounds`` in ``csrc/pi_descend.cuh``).
+
+    The count lies in a window of width ``w``, at first the least power of
+    two >= n.  A round splits it into ``group`` equal parts (``w`` of one
+    key once ``w <= group``), probes the last key of each, and moves the
+    count past the parts whose last key is below ``q`` -- a prefix of them,
+    as the keys are sorted; a probe past the end is not below.
+    """
+    n = sorted_keys.shape[0]
+    below = torch.le if right else torch.lt
+    count = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    w = (1 << max(0, (n - 1).bit_length())) if n else 0
+    while w > 0:
+        s = w // group if w > group else 1
+        idx = count[..., None] + s * torch.arange(
+            1, w // s + 1, device=q.device) - 1
+        hit = (idx < n) & below(sorted_keys[idx.clamp_max(n - 1)],
+                                q[..., None])
+        count = count + s * hit.sum(-1)
+        w = s if s > 1 else 0
+    return count.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version (the kernel's arithmetic, lane-parallel)
 # ---------------------------------------------------------------------------
@@ -77,8 +109,8 @@ def pi_range_plain(storage: torch.Tensor, live: torch.Tensor,
     """Plain version of ``pi_range`` (same arguments and outputs).
 
     The walk is a (B, max_span) gather that masks what the kernel's early
-    stop skips; the pending pass uses the kernel's two bounds and prefix
-    tables.
+    stop skips; the pending pass takes the kernel's two G-ary bounds and
+    prefix tables.
     """
     if levels is None:
         levels = derive_levels(storage, fanout)
@@ -97,8 +129,8 @@ def pi_range_plain(storage: torch.Tensor, live: torch.Tensor,
     cnt = inr.sum(1)
     sm = torch.where(inr, gather_fill(vals, slot, 0).long(), 0).sum(1)
     pcnt, psum = pending_prefix(pvals, plive)
-    a = _lower_bound(pending, lo).long()
-    b = _lower_bound(pending, hi, right=True).long()
+    a = group_bounds_plain(pending, lo).long()
+    b = group_bounds_plain(pending, hi, right=True).long()
     nonempty = lo <= hi
     cnt = cnt + torch.where(nonempty, pcnt[b] - pcnt[a], 0)
     sm = sm + torch.where(nonempty, psum[b].long() - psum[a].long(), 0)
@@ -145,7 +177,7 @@ def pi_range(storage: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
       levels:     optional index-layer arrays (bottom-up, as on
                   ``PIIndex.levels``); derived from storage when absent.
       tile_q:     kept for parity with the JAX signature; the kernel runs
-                  one thread per query.
+                  ``RANGE_GROUP`` lanes a query.
     Returns:
       (count, sum) — two (B,) int32 tensors.
     """

@@ -255,16 +255,30 @@ def test_flash_kernel_matches_plain_on_card():
     lengths below one key tile (1, 17) and ragged above it, a window
     crossing tile boundaries, a softcap, GQA with 7 query heads a KV head
     (56 over 8), MQA, no causal mask, and q, k, v views whose base is not
-    16-byte aligned; float32 (the scalar kernel) at three head dims.  One
-    launch a call; unsupported head dims raise."""
+    16-byte aligned; float32 (the FFMA kernel) at every head dim and on
+    every path it has: GQA (7 query heads a KV head), MQA with a window,
+    a softcap, S = 1000 at D = 16 and 256, S = 1 and 17, no causal mask
+    and unaligned views.  One launch a call; unsupported head dims raise."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on one")
     g = torch.Generator(device="cuda").manual_seed(0)
     FA.reset_launch_counts()
     bf = torch.bfloat16
-    cases = [((2, 128, 4, 2, 32), torch.float32, True, None, None),
-             ((1, 100, 4, 4, 96), torch.float32, True, None, None),
-             ((2, 64, 2, 2, 16), torch.float32, False, None, None),
+    f32 = torch.float32
+    cases = [((2, 128, 4, 2, 32), f32, True, None, None),
+             ((1, 100, 4, 4, 96), f32, True, None, None),
+             ((2, 64, 2, 2, 16), f32, False, None, None),
+             ((1, 300, 4, 4, 64), f32, True, None, None),
+             ((1, 200, 4, 2, 128), f32, True, None, None),
+             ((1, 1000, 56, 8, 128), f32, True, None, None),
+             ((2, 700, 16, 1, 96), f32, True, 64, None),
+             ((1, 260, 8, 8, 96), f32, True, None, 50.0),
+             ((1, 1000, 4, 4, 16), f32, True, None, None),
+             ((1, 1000, 4, 4, 256), f32, True, None, None),
+             ((1, 260, 4, 1, 256), f32, True, 100, 30.0),
+             ((2, 17, 8, 8, 96), f32, True, None, None),
+             ((4, 1, 8, 8, 96), f32, True, None, None),
+             ((1, 333, 8, 8, 96), f32, False, None, None),
              ((2, 300, 4, 2, 16), bf, True, None, None),
              ((1, 257, 4, 4, 32), bf, True, None, None),
              ((1, 200, 8, 1, 64), bf, True, 64, None),
@@ -298,7 +312,14 @@ def test_flash_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     e, share = FA.card_error(got, FA.flash_attention_fwd_plain(*views))
     assert share <= 1.0, ("misaligned", e, share)
-    assert FA.LAUNCHES == {"flash_attention_fwd": len(cases) + 1}
+    views = [torch.randn(1 + 2 * 150 * 4 * 64, generator=g, device="cuda")
+             [1:].view(shape) for _ in range(3)]
+    assert all(x.data_ptr() % 16 for x in views)
+    got = FA.flash_attention_fwd(*views)
+    torch.cuda.synchronize()
+    e, share = FA.card_error(got, FA.flash_attention_fwd_plain(*views))
+    assert share <= 1.0, ("misaligned float32", e, share)
+    assert FA.LAUNCHES == {"flash_attention_fwd": len(cases) + 2}
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(*(torch.zeros(1, 8, 2, 48, device="cuda")
                                  for _ in range(3)))

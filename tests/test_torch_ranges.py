@@ -7,10 +7,16 @@ JAX package's under ``xla`` and ``pallas-interpret``.  The cases: fanouts
 4/8/16, an empty index, tombstones in storage and in pending, dead pending
 lanes, ``lo > hi``, inert ``lo = sentinel, hi = 0`` lanes, ranges below
 the minimum, ``hi = INT_MAX - 1``, sums that wrap int32 and truncation at
-``max_span``.  The CUDA kernel itself runs only on a card:
+``max_span``.  ``group_bounds_plain``, the model of the kernel's G-ary
+pending search, must count what ``torch.searchsorted`` counts and give
+the JAX kernel's pending aggregate at each group size the kernel can be
+built with.  The CUDA kernel itself runs only on a card:
 ``test_pi_range_matches_plain_on_card``, which needs neither JAX nor the
 JAX package (``python -m pytest -m gpu``).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +29,7 @@ from repro_torch.kernels.pi_search import _lower_bound
 from repro_torch.pipeline import execute_ranges
 
 I32 = np.iinfo(np.int32)
+GROUPS = (8, 16, 32)   # the group sizes csrc/pi_range.cu can be built with
 
 
 def t(a):
@@ -212,6 +219,92 @@ def test_cpu_calls_launch_nothing(rng):
     tpi.range_agg(idx, t(np.array([0, 7], np.int32)),
                   t(np.array([100, 3], np.int32)))
     assert KR.LAUNCHES == {"pi_range": 0}
+
+
+def _sorted_pending(rng, n):
+    """A sorted pending buffer of length n: keys with duplicates (some at
+    the int32 limits) below sentinel padding."""
+    fill = n - n // 4
+    keys = np.sort(np.concatenate([
+        rng.integers(-1000, 1000, fill), [I32.min, I32.max - 1][:fill]])
+        [:fill])
+    return np.concatenate([keys, np.full(n - fill, I32.max)]) \
+        .astype(np.int32)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 100, 1000, 4097])
+@pytest.mark.parametrize("right", [False, True])
+def test_group_bounds_equal_searchsorted(rng, group, n, right):
+    """The model of the kernel's G-ary pending search counts what
+    ``torch.searchsorted`` counts, left and right, for n not a power of
+    two, keys repeated, and queries at the sentinel and the int32
+    limits."""
+    keys = _sorted_pending(rng, n)
+    q = np.concatenate([rng.integers(-1100, 1100, 300), keys[:50],
+                        [I32.max, I32.max - 1, I32.min, 0]]).astype(np.int32)
+    got = KR.group_bounds_plain(t(keys), t(q), right=right, group=group)
+    want = torch.searchsorted(t(keys), t(q), right=right)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), _lower_bound(t(keys), t(q), right=right).numpy())
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("fanout", [4, 16])
+def test_pi_range_group_matches_jax(rng, jx, group, fanout):
+    """The pending aggregate of the G-ary model, ``pcnt``/``psum`` between
+    ``group_bounds_plain(lo)`` and ``group_bounds_plain(hi, right=True)``,
+    equals what the JAX kernel in interpret mode adds for the pending
+    lanes (its result less its result with every pending lane dead) on the
+    same tables, bit for bit; ``pi_range_plain`` and the CPU wrapper equal
+    the JAX kernel."""
+    jnp = jx["jnp"]
+    idx, tidx, keys = _state(jx, rng, "pallas-interpret", 512, fanout,
+                             seg_width=fanout ** 2)
+    lo, hi = _bounds(rng, keys, 131, 512)
+    live, rank, d2s, plive = range_tables(tidx)
+
+    def jax_range(plive):
+        jargs = [jnp.asarray(x.numpy()) for x in (live, rank, d2s, plive)]
+        out = jx["pi_range"](idx.keys, jargs[0], idx.vals, jargs[1],
+                             jargs[2], idx.pkeys, idx.pvals, jargs[3],
+                             jnp.asarray(lo), jnp.asarray(hi), fanout=fanout,
+                             max_span=1024, tile_q=64, interpret=True,
+                             levels=idx.levels)
+        return [torch.from_numpy(np.array(x)).long() for x in out]
+
+    want = jax_range(plive)
+    main = jax_range(torch.zeros_like(plive))
+    pcnt, psum = KR.pending_prefix(tidx.pvals, plive)
+    a = KR.group_bounds_plain(tidx.pkeys, t(lo), group=group).long()
+    b = KR.group_bounds_plain(tidx.pkeys, t(hi), right=True,
+                              group=group).long()
+    nonempty = t(lo) <= t(hi)
+    p_cnt = torch.where(nonempty, pcnt[b] - pcnt[a], 0)
+    p_sum = KR.wrap_i32(torch.where(nonempty,
+                                    psum[b].long() - psum[a].long(), 0))
+    assert int(p_cnt.max()) > 0
+    np.testing.assert_array_equal(p_cnt.numpy(),
+                                  (want[0] - main[0]).numpy())
+    np.testing.assert_array_equal(p_sum.numpy(),
+                                  KR.wrap_i32(want[1] - main[1]).numpy())
+    args = (tidx.keys, live, tidx.vals, rank, d2s, tidx.pkeys, tidx.pvals,
+            plive, t(lo), t(hi))
+    for fn in (KR.pi_range_plain, KR.pi_range):
+        got = fn(*args, fanout=fanout, max_span=1024, levels=tidx.levels)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), KR.wrap_i32(w).numpy())
+
+
+def test_range_group_is_the_kernels():
+    """``RANGE_GROUP`` is the kernel's group (``PI_RANGE_GROUP``), and one
+    of the sizes the tests above hold the model to."""
+    src = (Path(KR.__file__).parent / "csrc" / "pi_range.cu").read_text()
+    m = re.search(r"^#define PI_RANGE_GROUP (\d+)", src, re.M)
+    assert m and int(m.group(1)) == KR.RANGE_GROUP
+    assert KR.RANGE_GROUP in GROUPS
 
 
 @pytest.mark.gpu
