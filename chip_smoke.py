@@ -13,7 +13,10 @@ operations.  Phases:
 1. build the kernels and the index; print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, bit for
    bit, at the main paths' shapes, and time both: ``pi_probe`` and
-   ``pi_search`` on the fresh and the pending-filled index, ``pi_range``
+   ``pi_search`` in int32 and float32 on the fresh and the pending-filled
+   index, on mixed lanes and on a window's keys sorted (both timed, beside
+   one query's probe, an empty kernel and ``torch.searchsorted`` over the
+   pending buffer, a partial yardstick for the probe), ``pi_range``
    on the fresh index and on the pending-filled one with deletes (storage
    and pending tombstones), with YCSB-E scans, empty and inert lanes,
    ranges below the minimum or up to INT_MAX - 1 and spans beyond the
@@ -361,39 +364,60 @@ def mixed_queries(rng, keys, extra, n, key_space):
     return torch.from_numpy(rng.permutation(q).astype(np.int32)).to(DEVICE)
 
 
-def check_kernels(idx, q, tag, iters):
-    """Each kernel against its plain version at these shapes; timings."""
+def empty_kernel_ms(iters: int) -> float:
+    """Device time of an empty kernel (``launch_floor``), the least a
+    launch of this card takes."""
+    from repro_torch.kernels import bitonic_sort as KB
+    lib = KB.load_library("bitonic_sort")
+    return device_ms(
+        lambda: lib.launch_floor(torch.cuda.current_stream().cuda_stream),
+        iters, "launch_floor")
+
+
+def check_kernels(idx, q, window_keys, tag, iters):
+    """Each kernel against its plain version at these shapes, in int32 and
+    float32, on q and on a window's keys sorted (as ``execute`` probes
+    them); timings."""
     from repro_torch.kernels import pi_search as K
     F = idx.config.fanout
     lv, st, pk = idx.levels, idx.keys, idx.pkeys
+    # float32 keys: the kernels' second instantiation, on the cast keys
+    lvf, stf, pkf = tuple(x.float() for x in lv), st.float(), pk.float()
+    sorted_q = torch.sort(window_keys).values
 
-    def probe():
-        return K.pi_probe(st, pk, q, fanout=F, levels=lv)
+    def probe(lanes=q):
+        return K.pi_probe(st, pk, lanes, fanout=F, levels=lv)
 
     def probe_plain():
         return K.pi_probe_plain(st, pk, q, fanout=F, levels=lv)
 
-    def search():
-        return K.pi_search(st, q, fanout=F, levels=lv)
+    def search(lanes=q):
+        return K.pi_search(st, lanes, fanout=F, levels=lv)
 
     def search_plain():
         return K.pi_search_plain(st, q, fanout=F, levels=lv)
 
-    got, want = probe(), probe_plain()
-    s_got, s_want = search(), search_plain()
-    # float32 keys: the kernel's second instantiation, on the cast keys
-    stf, qf = st.float(), q.float()
-    lvf = tuple(x.float() for x in lv)
-    f_got = K.pi_search(stf, qf, fanout=F, levels=lvf)
-    f_want = K.pi_search_plain(stf, qf, fanout=F, levels=lvf)
+    pairs = []
+    for sfx, keys, pend, levels, lanes in (
+            ("", st, pk, lv, q), (" f32", stf, pkf, lvf, q.float()),
+            (" sorted window", st, pk, lv, sorted_q),
+            (" f32 sorted window", stf, pkf, lvf, sorted_q.float())):
+        kw = dict(fanout=F, levels=levels)
+        pairs += [("pi_probe" + sfx, K.pi_probe(keys, pend, lanes, **kw),
+                   K.pi_probe_plain(keys, pend, lanes, **kw)),
+                  ("pi_search" + sfx, (K.pi_search(keys, lanes, **kw),),
+                   (K.pi_search_plain(keys, lanes, **kw),))]
+    got = pairs[0][1]
     torch.cuda.synchronize()
-    probe_err = max(int((a.long() - b.long()).abs().max())
-                    for a, b in zip(got, want))
-    search_err = int((s_got.long() - s_want.long()).abs().max())
-    for name, a, b in zip(("mpos", "ppos", "flags"), got, want):
-        assert torch.equal(a, b), f"pi_probe {name} != plain ({tag})"
-    assert torch.equal(s_got, s_want), f"pi_search != plain ({tag})"
-    assert torch.equal(f_got, f_want), f"pi_search f32 != plain ({tag})"
+    probe_err = search_err = 0
+    for name, gs, ws in pairs:
+        for a, b in zip(gs, ws):
+            err = int((a.long() - b.long()).abs().max())
+            if name.startswith("pi_probe"):
+                probe_err = max(probe_err, err)
+            else:
+                search_err = max(search_err, err)
+            assert torch.equal(a, b), f"{name} != plain ({tag})"
     hits = int(((got[0] >= 0) & ((got[2] & 1) > 0)).sum())
     p_hits = int(((got[2] & 2) > 0).sum())
 
@@ -412,25 +436,35 @@ def check_kernels(idx, q, tag, iters):
         search_call_ms=time_ms(search, iters),
         search_plain_ms=device_ms(search_plain, plain_iters),
         search_plain_call_ms=time_ms(search_plain, plain_iters),
-        probe_one_query_ms=device_ms(
-            lambda: K.pi_probe(st, pk, q[:1], fanout=F, levels=lv), iters,
-            "pi_probe_kernel"),
+        probe_sorted_ms=device_ms(lambda: probe(sorted_q), iters,
+                                  "pi_probe_kernel"),
+        search_sorted_ms=device_ms(lambda: search(sorted_q), iters,
+                                   "pi_search_kernel"),
+        probe_one_query_ms=device_ms(lambda: probe(q[:1]), iters,
+                                     "pi_probe_kernel"),
+        empty_kernel_ms=empty_kernel_ms(iters),
         searchsorted_pending_ms=device_ms(
             lambda: torch.searchsorted(pk, q), iters))
     log(f"[kernels:{tag}] B={B} pn={int(idx.pn)} main hits={hits} "
-        f"pending hits={p_hits} max_abs_err probe {probe_err} search "
-        f"{search_err}; {d_bytes + p_bytes} B of keys touched")
+        f"pending hits={p_hits}; pi_probe and pi_search equal to their "
+        f"plain versions in int32 and float32 on these lanes and on a "
+        f"window's {sorted_q.numel()} keys sorted: max_abs_err probe "
+        f"{probe_err} search {search_err}; {d_bytes + p_bytes} B of keys "
+        f"touched")
     for name in ("probe", "search"):
         b = probe_bound if name == "probe" else search_bound
         log(f"[kernels:{tag}] pi_{name}: device {t[name + '_ms']:.6f} ms "
             f"(per call with the host's launch {t[name + '_call_ms']:.6f}"
-            f" ms) | plain version device {t[name + '_plain_ms']:.6f} ms "
+            f" ms), on the sorted window {t[name + '_sorted_ms']:.6f} ms "
+            f"| plain version device {t[name + '_plain_ms']:.6f} ms "
             f"(per call {t[name + '_plain_call_ms']:.6f} ms) | bound "
-            f"{b[0]:.6f} ms by {b[1]}")
+            f"{b[0]:.6f} ms by {b[1]} | empty kernel "
+            f"{t['empty_kernel_ms']:.6f} ms")
     log(f"[kernels:{tag}] pi_probe of one query: device "
-        f"{t['probe_one_query_ms']:.6f} ms | partial yardstick "
-        f"searchsorted(pending): device "
-        f"{t['searchsorted_pending_ms']:.6f} ms")
+        f"{t['probe_one_query_ms']:.6f} ms | empty kernel device "
+        f"{t['empty_kernel_ms']:.6f} ms | bound {probe_bound[0]:.6f} ms | "
+        f"partial yardstick (the pending half alone) searchsorted(pending):"
+        f" device {t['searchsorted_pending_ms']:.6f} ms")
     return dict(t, probe_err=probe_err, search_err=search_err,
                 probe_bound=probe_bound, search_bound=search_bound)
 
@@ -693,10 +727,7 @@ def check_bitonic(rng, window_keys, iters):
                            plain_iters),
         library_ms=device_ms(lambda: torch.argsort(window_keys, stable=True),
                              iters))
-    lib = KB.load_library("bitonic_sort")
-    floor_ms = device_ms(
-        lambda: lib.launch_floor(torch.cuda.current_stream().cuda_stream),
-        iters, "launch_floor")
+    floor_ms = empty_kernel_ms(iters)
     rb = bitonic_bound(B)
     log(f"[kernels:bitonic] {len(cases)} cases (B = {B}, 2^15, 2^20; int32 "
         f"and float32 keys), the size sweep ({n_sweep} cases, B = 2^1 .. "
@@ -1701,12 +1732,14 @@ def main(argv=None) -> int:
     fresh = rng.integers(0, ycfg.key_space, cfg.pending_capacity // 4) \
         .astype(np.int32)
     q = mixed_queries(rng, keys_np, fresh, ycfg.batch, ycfg.key_space)
-    check_kernels(idx0, q, "fresh", ITERS)
+    window_keys = torch.from_numpy(data.ycsb_batch(ycfg, keys_np, 0)[1])
+    window_keys = window_keys.to(DEVICE)
+    check_kernels(idx0, q, window_keys, "fresh", ITERS)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     filled, _ = pi.insert_batch(idx0, torch.from_numpy(fresh).to(DEVICE),
                                 torch.from_numpy(fresh).to(DEVICE))
     q = mixed_queries(rng, keys_np, fresh, ycfg.batch, ycfg.key_space)
-    timing = check_kernels(filled, q, "pending-filled", ITERS)
+    timing = check_kernels(filled, q, window_keys, "pending-filled", ITERS)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     lo, hi = range_queries(rng, keys_np, ycfg.batch, ycfg.key_space)
     range_fresh = check_range_kernel(idx0, lo, hi, "fresh", ITERS)
@@ -1726,8 +1759,7 @@ def main(argv=None) -> int:
         filled, lo, hi, "ycsb-e window, pending-filled+deletes", ITERS)
     del filled
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
-    window_keys = torch.from_numpy(data.ycsb_batch(ycfg, keys_np, 0)[1])
-    bitonic = check_bitonic(rng, window_keys.to(DEVICE), ITERS)
+    bitonic = check_bitonic(rng, window_keys, ITERS)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 3. the main path -------------------------------------------------
@@ -1831,7 +1863,8 @@ def main(argv=None) -> int:
              max_abs_err=timing["probe_err"], ms=timing["probe_ms"],
              plain_ms=timing["probe_plain_ms"],
              bound_ms=timing["probe_bound"][0],
-             bound_by=timing["probe_bound"][1], library_ms=None),
+             bound_by=timing["probe_bound"][1], library_ms=None,
+             searchsorted_pending_ms=timing["searchsorted_pending_ms"]),
         dict(name="pi_search", route="cuda", source=src,
              replaces="src/repro/kernels/pi_search.py:263",
              launches=launches["pi_search"],

@@ -36,6 +36,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pi_search_f32": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
         "pi_probe_i32": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
                          _P, _P, _P, _P],
+        "pi_probe_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+                         _P, _P, _P, _P],
     },
     "pi_range": {
         "pi_range_i32": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P,

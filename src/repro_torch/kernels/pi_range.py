@@ -38,7 +38,7 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.pi_search import (_check_launch_args, _descend,
                                            _level_args, _raise_on,
                                            derive_levels, gather_fill,
-                                           sentinel_for)
+                                           group_bounds_plain, sentinel_for)
 
 LAUNCHES = {"pi_range": 0}
 RANGE_GROUP = 32   # lanes a query: PI_RANGE_GROUP of csrc/pi_range.cu
@@ -67,32 +67,6 @@ def pending_prefix(pvals: torch.Tensor, plive: torch.Tensor):
     psum = torch.cat([zero, torch.cumsum(torch.where(live, pvals.long(), 0),
                                          0)])
     return pcnt.to(torch.int32), wrap_i32(psum)
-
-
-def group_bounds_plain(sorted_keys: torch.Tensor, q: torch.Tensor,
-                       right: bool = False, group: int = RANGE_GROUP):
-    """#{i : sorted_keys[i] < q} per lane (``right``: <= q), by the kernel's
-    ``group``-ary search (``group_bounds`` in ``csrc/pi_descend.cuh``).
-
-    The count lies in a window of width ``w``, at first the least power of
-    two >= n.  A round splits it into ``group`` equal parts (``w`` of one
-    key once ``w <= group``), probes the last key of each, and moves the
-    count past the parts whose last key is below ``q`` -- a prefix of them,
-    as the keys are sorted; a probe past the end is not below.
-    """
-    n = sorted_keys.shape[0]
-    below = torch.le if right else torch.lt
-    count = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
-    w = (1 << max(0, (n - 1).bit_length())) if n else 0
-    while w > 0:
-        s = w // group if w > group else 1
-        idx = count[..., None] + s * torch.arange(
-            1, w // s + 1, device=q.device) - 1
-        hit = (idx < n) & below(sorted_keys[idx.clamp_max(n - 1)],
-                                q[..., None])
-        count = count + s * hit.sum(-1)
-        w = s if s > 1 else 0
-    return count.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +103,8 @@ def pi_range_plain(storage: torch.Tensor, live: torch.Tensor,
     cnt = inr.sum(1)
     sm = torch.where(inr, gather_fill(vals, slot, 0).long(), 0).sum(1)
     pcnt, psum = pending_prefix(pvals, plive)
-    a = group_bounds_plain(pending, lo).long()
-    b = group_bounds_plain(pending, hi, right=True).long()
+    a = group_bounds_plain(pending, lo, group=RANGE_GROUP).long()
+    b = group_bounds_plain(pending, hi, right=True, group=RANGE_GROUP).long()
     nonempty = lo <= hi
     cnt = cnt + torch.where(nonempty, pcnt[b] - pcnt[a], 0)
     sm = sm + torch.where(nonempty, psum[b].long() - psum[a].long(), 0)

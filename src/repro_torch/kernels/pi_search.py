@@ -10,6 +10,12 @@ same arguments and outputs as the JAX package's:
   ``execute`` and ``lookup`` of the ``cuda`` backend reaches it through
   ``core.engine.SearchEngine.probe``.
 
+Both kernels serve each query with a group of ``PROBE_GROUP`` lanes (a
+constant of ``csrc/pi_search.cu``): the descent reads a level's F keys at
+once, and the pending bound is a ``PROBE_GROUP``-ary search, interleaved
+with the descent (``group_bounds_plain`` is its model).  Both take int32
+and float32 keys on the card.
+
 Each wrapper routes by the device of its tensors: a CPU tensor runs the
 plain PyTorch version beside it (``pi_search_plain`` / ``pi_probe_plain``,
 the port's counterpart of Pallas interpret mode); a CUDA tensor launches
@@ -39,7 +45,8 @@ from repro_torch.kernels.build import load_library
 FLAG_MAIN_MATCH = 1    # storage key at the floor position equals the query
 FLAG_PENDING_HIT = 2   # pending key at the insertion point equals the query
 
-MAX_LEVELS = 32        # PI_MAX_LEVELS in csrc/pi_search.cu
+MAX_LEVELS = 32        # PI_MAX_LEVELS in csrc/pi_descend.cuh
+PROBE_GROUP = 8        # lanes a query: PI_PROBE_GROUP of csrc/pi_search.cu
 
 LAUNCHES = {"pi_search": 0, "pi_probe": 0}
 
@@ -137,8 +144,8 @@ def _descend(levels: Sequence[torch.Tensor], storage: torch.Tensor,
 def _lower_bound(sorted_keys: torch.Tensor, q: torch.Tensor,
                  right: bool = False) -> torch.Tensor:
     """#{i : sorted_keys[i] < q} per lane (``right``: <= q), capped at the
-    length; twin of the JAX ``_lower_bound`` and of ``bound`` in
-    ``csrc/pi_descend.cuh``.
+    length; twin of the JAX ``_lower_bound``, and the count the kernels'
+    G-ary search (``group_bounds_plain``) must give.
 
     The branchless binary search over the buffer as if it were padded to a
     power of two with the sentinel (reads past the end are the sentinel).
@@ -158,6 +165,33 @@ def _lower_bound(sorted_keys: torch.Tensor, q: torch.Tensor,
     return (count + below(last, q).to(torch.int32)).clamp_max(n)
 
 
+def group_bounds_plain(sorted_keys: torch.Tensor, q: torch.Tensor,
+                       right: bool = False, group: int = PROBE_GROUP):
+    """#{i : sorted_keys[i] < q} per lane (``right``: <= q), by the kernels'
+    ``group``-ary search (``group_bounds`` and its one-sided half
+    ``GroupLowerBound`` in ``csrc/pi_descend.cuh``).
+
+    The count lies in a window of width ``w``, at first the least power of
+    two >= n.  A round splits it into ``group`` equal parts (``w`` of one
+    key once ``w <= group``), probes the last key of each, and moves the
+    count past the parts whose last key is below ``q`` -- a prefix of them,
+    as the keys are sorted; a probe past the end is not below.
+    """
+    n = sorted_keys.shape[0]
+    below = torch.le if right else torch.lt
+    count = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    w = (1 << max(0, (n - 1).bit_length())) if n else 0
+    while w > 0:
+        s = w // group if w > group else 1
+        idx = count[..., None] + s * torch.arange(
+            1, w // s + 1, device=q.device) - 1
+        hit = (idx < n) & below(sorted_keys[idx.clamp_max(n - 1)],
+                                q[..., None])
+        count = count + s * hit.sum(-1)
+        w = s if s > 1 else 0
+    return count.to(torch.int32)
+
+
 def pi_search_plain(storage: torch.Tensor, queries: torch.Tensor, *,
                     fanout: int = 8,
                     levels: Sequence[torch.Tensor] | None = None
@@ -173,7 +207,9 @@ def pi_search_plain(storage: torch.Tensor, queries: torch.Tensor, *,
 def pi_probe_plain(storage: torch.Tensor, pending: torch.Tensor,
                    queries: torch.Tensor, *, fanout: int = 8,
                    levels: Sequence[torch.Tensor] | None = None):
-    """Plain version of ``pi_probe``; twin of the JAX ``_probe_kernel``."""
+    """Plain version of ``pi_probe``; twin of the JAX ``_probe_kernel``,
+    with the pending bound by the kernel's G-ary search (the same count as
+    the JAX ``_lower_bound``)."""
     if levels is None:
         levels = derive_levels(storage, fanout)
     q = queries.to(storage.dtype)
@@ -181,7 +217,7 @@ def pi_probe_plain(storage: torch.Tensor, pending: torch.Tensor,
     pos, underflow = _descend(levels, storage, q, fanout)
     mpos = torch.where(underflow, -1, pos)
     main_match = (mpos >= 0) & (storage[mpos.clamp(0, C - 1).long()] == q)
-    ppos = _lower_bound(pending, q)
+    ppos = group_bounds_plain(pending, q)
     p_hit = (pending[ppos.clamp_max(PC - 1).long()] == q) & (ppos < PC)
     flags = main_match.to(torch.int32) * FLAG_MAIN_MATCH | \
         p_hit.to(torch.int32) * FLAG_PENDING_HIT
@@ -237,7 +273,7 @@ def pi_search(storage: torch.Tensor, queries: torch.Tensor, *,
       levels:  optional index-layer arrays (bottom-up, as on
                ``PIIndex.levels``); derived from storage when absent.
       tile_q:  kept for parity with the JAX signature; the CUDA kernel
-               runs one thread per query and masks the ragged block.
+               runs ``PROBE_GROUP`` lanes a query.
     Returns:
       (B,) int32 positions (−1 where q < storage[0]).
     """
@@ -270,7 +306,7 @@ def pi_probe(storage: torch.Tensor, pending: torch.Tensor,
     """Fused production probe: descent + pending lower bound, ONE launch.
 
     Args:
-      storage: (C,)  storage-layer keys, int32.
+      storage: (C,)  storage-layer keys, int32 or float32.
       pending: (PC,) sorted pending-buffer keys, sentinel-padded.
       queries: (B,)  query keys, any B.
       levels:  optional index-layer arrays (bottom-up); derived when absent.
@@ -289,18 +325,19 @@ def pi_probe(storage: torch.Tensor, pending: torch.Tensor,
         levels = derive_levels(storage, fanout)
     q = queries.to(storage.dtype).contiguous()
     _check_launch_args("pi_probe", storage, levels, (pending, q),
-                       (torch.int32,))
+                       (torch.int32, torch.float32))
     outs = [torch.empty(q.shape, dtype=torch.int32, device=storage.device)
             for _ in range(3)]
     if q.shape[0] == 0:
         return tuple(outs)
+    fn = getattr(load_library("pi_search"),
+                 "pi_probe_" + _SUFFIX[storage.dtype])
     ptrs, lens, n_levels = _level_args(levels)
     with torch.cuda.device(storage.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = load_library("pi_search").pi_probe_i32(
-            ptrs, lens, n_levels, storage.data_ptr(), storage.shape[0],
-            pending.data_ptr(), pending.shape[0], q.data_ptr(), q.shape[0],
-            fanout, *(o.data_ptr() for o in outs), stream)
+        rc = fn(ptrs, lens, n_levels, storage.data_ptr(), storage.shape[0],
+                pending.data_ptr(), pending.shape[0], q.data_ptr(),
+                q.shape[0], fanout, *(o.data_ptr() for o in outs), stream)
     _raise_on("pi_probe", rc)
     LAUNCHES["pi_probe"] += 1
     return tuple(outs)

@@ -4,11 +4,18 @@
 plain version for a CPU tensor) must equal the JAX ``pi_search`` /
 ``pi_probe`` run in interpret mode, bit for bit, over a sweep of
 capacities, fanouts and key dtypes, with ragged batches of duplicates,
-misses, keys below the minimum and sentinel keys.  The CUDA kernels
-themselves run only on a card: ``test_kernels_match_plain_on_card``,
+misses, keys below the minimum and sentinel keys, on random and on sorted
+(window) lanes, with float32 probes too.  ``group_bounds_plain``, the
+model of the kernels' G-ary pending search, must count what
+``torch.searchsorted`` counts at every group size the kernels can be built
+with.  The CUDA kernels themselves run only on a card:
+``test_kernels_match_plain_on_card``,
 which needs neither JAX nor the JAX package, so that it also runs where
 only PyTorch is installed (``python -m pytest -m gpu``).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +24,7 @@ from repro_torch.core import index as tpi
 from repro_torch.kernels import pi_search as K
 
 I32 = np.iinfo(np.int32)
+GROUPS = (8, 16, 32)   # the group sizes csrc/pi_search.cu builds with
 
 
 def t(a):
@@ -168,32 +176,136 @@ def test_lower_bound_equals_searchsorted(rng):
             np.searchsorted(keys, q, side="left"))
 
 
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 1000, (1 << 12) + 3])
+@pytest.mark.parametrize("group", GROUPS)
+def test_group_lower_bound_equals_searchsorted(rng, n, group):
+    """The kernels' one-sided G-ary pending bound (``group_bounds_plain``,
+    the model of ``GroupLowerBound``) is searchsorted-left at any length,
+    on a sentinel-padded buffer with keys at the int32 limits."""
+    keys = np.full(n, I32.max, np.int32)
+    live = np.sort(rng.choice(5 * n + 10, (n + 1) // 2, replace=False))
+    keys[: live.size] = live
+    keys[0] = I32.min if n > 2 else keys[0]
+    keys = np.sort(keys)
+    q = rng.integers(-5, 5 * n + 15, 211).astype(np.int32)
+    q[:4] = (I32.max, I32.min, 0, I32.max - 1)
+    got = K.group_bounds_plain(t(keys), t(q), group=group)
+    assert got.dtype == torch.int32
+    want = torch.searchsorted(t(keys), t(q))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(),
+                                  K._lower_bound(t(keys), t(q)).numpy())
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("fanout", [4, 8, 16])
+def test_plain_matches_jax_on_window_lanes(rng, jx, order, fanout):
+    """``pi_probe_plain`` and ``pi_search_plain`` equal the JAX kernels in
+    interpret mode on a pending-filled index, for a window's lanes in
+    arrival order and sorted by key, as ``execute`` probes them."""
+    C = 4096
+    jnp = jx["jnp"]
+    keys, newk = _keys(rng, C)
+    jcfg, tcfg = jx["parity"].configs(**_geometry(C, fanout))
+    idx = jx["build"](jcfg, jnp.asarray(keys),
+                      jnp.asarray(np.arange(keys.size, dtype=np.int32)))
+    idx, _ = jx["insert"](idx, jnp.asarray(newk), jnp.asarray(newk))
+    tidx = jx["parity"].to_torch(idx, tcfg)
+    q = mixed_queries(rng, np.concatenate([keys, newk]), 512, C * 20,
+                      np.int32)
+    if order == "sorted":
+        q = np.sort(q)
+    want = jx["probe"](idx.keys, idx.pkeys, jnp.asarray(q), fanout=fanout,
+                       tile_q=64, interpret=True, levels=idx.levels)
+    got = K.pi_probe_plain(tidx.keys, tidx.pkeys, t(q), fanout=fanout,
+                           levels=tidx.levels)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(((got[2] & K.FLAG_PENDING_HIT) > 0).sum()) > 0
+    assert int(((got[2] & K.FLAG_MAIN_MATCH) > 0).sum()) > 0
+    want_s = jx["search"](idx.keys, jnp.asarray(q), fanout=fanout,
+                          tile_q=64, interpret=True, levels=idx.levels)
+    np.testing.assert_array_equal(
+        K.pi_search_plain(tidx.keys, t(q), fanout=fanout,
+                          levels=tidx.levels).numpy(), np.asarray(want_s))
+
+
+def float_probe_inputs(rng, C, B):
+    """float32 storage with an +inf tail, a sorted +inf-padded pending
+    buffer holding some stored keys and some new ones, and a ragged batch
+    of stored and pending keys, misses, keys below the minimum, -inf and
+    +inf."""
+    storage = make_storage(rng, C, np.float32)
+    stored = storage[np.isfinite(storage)]
+    PC = max(C // 4, 4)
+    fresh = rng.uniform(0, 1e6, PC // 2).astype(np.float32)
+    pend = np.concatenate([fresh[: PC // 2 - 1], stored[:1]])
+    pending = np.full(PC, np.inf, np.float32)
+    pending[: pend.size] = np.sort(pend)
+    q = mixed_queries(rng, np.concatenate([stored, pend]), B, 1e6,
+                      np.float32)
+    return storage, pending, q
+
+
+@pytest.mark.parametrize("C,fanout", [(64, 4), (1000, 8), (4096, 16),
+                                      (5, 16)])
+def test_pi_probe_float32_matches_jax(rng, jx, C, fanout):
+    """A float32 probe (storage, pending and queries, with +-inf and keys
+    below the minimum): the plain version and the CPU wrapper equal the
+    JAX ``pi_probe`` in interpret mode, bit for bit (C = 5: no level)."""
+    storage, pending, q = float_probe_inputs(rng, C, 299)
+    jnp = jx["jnp"]
+    want = jx["probe"](jnp.asarray(storage), jnp.asarray(pending),
+                       jnp.asarray(q), fanout=fanout, tile_q=64,
+                       interpret=True)
+    for fn in (K.pi_probe_plain, K.pi_probe):
+        got = fn(t(storage), t(pending), t(q), fanout=fanout)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_probe_group_is_the_kernels():
+    """``PROBE_GROUP`` is the kernels' group (``PI_PROBE_GROUP``), and one
+    of the sizes the tests above hold the model to."""
+    src = (Path(K.__file__).parent / "csrc" / "pi_search.cu").read_text()
+    m = re.search(r"^#define PI_PROBE_GROUP (\d+)", src, re.M)
+    assert m and int(m.group(1)) == K.PROBE_GROUP
+    assert K.PROBE_GROUP in GROUPS
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card(rng):
     """Each CUDA kernel equals its plain version on the card, bit for bit,
-    and counts one launch per call."""
+    on random and sorted lanes and in int32 and float32, and counts one
+    launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernels run only on one")
     dev = "cuda"
-    for C, fanout in [(64, 4), (1000, 8), (4096, 16), (625, 5)]:
+    for C, fanout in [(64, 4), (1000, 8), (4096, 16), (625, 5), (5, 16),
+                      (24, 2), (2000, 12)]:
         tidx, keys, newk = _port_index(rng, C, fanout)
         lv = tuple(x.to(dev) for x in tidx.levels)
         st, pk = tidx.keys.to(dev), tidx.pkeys.to(dev)
         q = t(mixed_queries(rng, np.concatenate([keys, newk]), 517, C * 20,
                             np.int32)).to(dev)
         K.reset_launch_counts()
-        got = K.pi_probe(st, pk, q, fanout=fanout, levels=lv)
-        want = K.pi_probe_plain(st, pk, q, fanout=fanout, levels=lv)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-        assert torch.equal(K.pi_search(st, q, fanout=fanout, levels=lv),
-                           K.pi_search_plain(st, q, fanout=fanout,
-                                             levels=lv))
-        sf = t(make_storage(rng, C, np.float32)).to(dev)
-        qf = t(mixed_queries(rng, sf.cpu().numpy()[:C // 2], 300, 1e6,
-                             np.float32)).to(dev)
-        assert torch.equal(K.pi_search(sf, qf, fanout=fanout),
-                           K.pi_search_plain(sf, qf, fanout=fanout))
-        assert K.LAUNCHES == {"pi_search": 2, "pi_probe": 1}
+        for lanes in (q, torch.sort(q).values):
+            got = K.pi_probe(st, pk, lanes, fanout=fanout, levels=lv)
+            want = K.pi_probe_plain(st, pk, lanes, fanout=fanout, levels=lv)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            assert torch.equal(
+                K.pi_search(st, lanes, fanout=fanout, levels=lv),
+                K.pi_search_plain(st, lanes, fanout=fanout, levels=lv))
+        sf, pf, qf = (t(a).to(dev) for a in float_probe_inputs(rng, C, 300))
+        for lanes in (qf, torch.sort(qf).values):
+            assert torch.equal(K.pi_search(sf, lanes, fanout=fanout),
+                               K.pi_search_plain(sf, lanes, fanout=fanout))
+            got = K.pi_probe(sf, pf, lanes, fanout=fanout)
+            want = K.pi_probe_plain(sf, pf, lanes, fanout=fanout)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        assert K.LAUNCHES == {"pi_search": 4, "pi_probe": 4}
     with pytest.raises(TypeError):
         K.pi_probe(st.double(), pk.double(), q.double(), fanout=fanout)
