@@ -6,9 +6,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py [--profile WINDOWS]
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and drives
-one PI shard at a real data size: 2^24 YCSB keys over a 2^30 key space,
-capacity 2^25, pending capacity 2^22, fanout 8, windows of 8192
-operations.  Phases:
+the index at a real data size: 2^24 YCSB keys over a 2^30 key space in one
+PI shard (capacity 2^25, pending capacity 2^22, fanout 8) and in 8
+fence-routed shards, windows of 8192 operations.  Phases:
 
 1. build the kernels and the index; print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, bit for
@@ -53,7 +53,34 @@ operations.  Phases:
    ``Durability`` over one recovered index finishes the stream at the
    crash-free state.  Prints the WAL append and fsync times, snapshot and
    recover times and arrivals/s with and without durability;
-6. ``[kernels:flash]``: ``flash_attention_fwd`` against its plain
+6. ``[sharded]``: the same 2^24 keys as 8 fence-routed shards on the card,
+   each of ``benchmarks/fig8_scalability.py``'s per-shard geometry
+   (capacity 2N/S = 2^22, pending capacity N/S/4 = 2^19, fanout 8);
+   windows of 8192 with capacity factor 2.0, so a send bucket holds 256
+   lanes and each shard executes 2048.  ``pi_probe``,
+   ``bitonic_argsort`` and ``pi_range`` against their plain versions at a
+   shard's shapes; 32 point windows (write ratio 0.5, zipf 0.9, the
+   collector's windows) through the sharded ``Dispatcher``, against
+   ``RefIndex`` and the ``torch`` backend bit for bit, then
+   ``collect_pairs`` after the windows and after ``rebuild_sharded``
+   against the oracle's live set; a YCSB-E stream through
+   ``Dispatcher.run`` against the pre-window oracle and the ``torch``
+   backend; a zipfian burst whose per-shard load re-cuts the fences
+   (``rebalance_from_load``), the rebuilt index showing a lower
+   ``load_imbalance``; a capacity factor of 0.25 that raises
+   ``DispatchOverflowError`` and a mostly padded window that does not;
+   durability of the sharded kind (recover after a clean close and after
+   a crash at each fault point, bit for bit).  Prints ops/s, window p50
+   and p99 beside the single shard's, the per-shard load and imbalance,
+   and with ``--profile`` device time by kernel and the busy share;
+7. ``[overload]``: a bursty stream (write ratio 0.6, zipf 0.9) through
+   ``OverloadController.run`` on the ``cuda`` backend at the 2^24-key
+   index with a pending capacity of 2^14, so that the pending fill passes
+   the shed thresholds: it must shed, retry and end with the breaker
+   closed; the admitted subsequence replays exactly against ``RefIndex``
+   (zero acknowledged loss) and the ``torch`` backend gives an identical
+   ``RunReport``;
+8. ``[kernels:flash]``: ``flash_attention_fwd`` against its plain
    version on the card at phi3-mini's prefill shape (8 x 2048 tokens, 32
    heads of 96, bfloat16, causal), yi-34b's heads (56 over 8 KV heads),
    MQA with a window of 64, a softcap of 50, a ragged length of 1000 at
@@ -68,7 +95,7 @@ operations.  Phases:
    shape and of the float32 kernel at (2, 512, 32, 32, 96), each against
    its bound, the plain version and ``F.scaled_dot_product_attention`` in
    its dtype (timed only);
-7. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
+9. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
    heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
    on a CUDA generator seeded with ``SEED``, cast once to bfloat16: a
    prefill of 8 prompts of 2048 tokens (the flash kernel once a layer,
@@ -77,20 +104,22 @@ operations.  Phases:
    of 2 x 256 tokens must agree with 256 token-by-token decode steps
    (attention by plain einsums) in its last logits and every cache leaf;
    device time of a prefill and of a decode step by kernel;
-8. ``[serve:lm]``: the LM ``Server`` at that width (8 slots, 128
+10. ``[serve:lm]``: the LM ``Server`` at that width (8 slots, 128
    positions, the ``cuda`` session table, a WAL under
    ``build/serve_wal``) serves 16 requests with prompts of 16-48 tokens
    and 16 new tokens each until drained, with ``session_range`` checked
    midway against the host's view; ``recover`` of its directory equals
    its table bit for bit;
-9. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+11. check that each path launched its kernels: ``pi_probe``, ``pi_search``
    and ``bitonic_sort`` on the point path, ``pi_probe`` and
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
-   window on the serving, the durable and the LM serving path,
-   ``flash_attention_fwd`` once a layer of every prefill and forward.
+   window on the serving, the durable, the overload and the LM serving
+   path, each of them S = 8 times a window (``pi_range`` S times a
+   range-bearing window) on the sharded path, ``flash_attention_fwd``
+   once a layer of every prefill and forward.
 
-``--profile N`` adds device time by kernel over N point windows and N
-serving windows.  The line before the last is a JSON object with one
+``--profile N`` adds device time by kernel over N point windows, N
+serving windows and N sharded windows.  The line before the last is a JSON object with one
 entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result;
 so does a machine without a CUDA card, or a directory without the rest of
@@ -134,6 +163,13 @@ BITONIC_SIZES = (1 << 13, 1 << 15, 1 << 20, 1 << 22)   # ... and times these
 SEED = 0
 SNAPSHOT_EVERY = 8   # windows between snapshots on the durable path
 DURABLE_DIR = os.path.join(ROOT, "build", "durability")
+SHARDS = 8           # [sharded]: fig8_scalability's shards of N/S keys
+CAPACITY_FACTOR = 2.0    # its routing: a send bucket of cap = 256 lanes
+SHARD_CAP = 256
+SHARD_WINDOWS = 32   # point windows through the sharded dispatcher
+SHARD_SERVE_WINDOWS = 16   # windows' worth of YCSB-E arrivals there
+SHARD_DURABLE = 12   # windows' worth of the mixed stream, durable
+OVERLOAD_WINDOWS = 16    # [overload]: windows' worth of the burst
 CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
                 "ckpt.mid_write", "ckpt.pre_rename")
 LM_ARCH = "phi3-mini-3.8b"
@@ -859,12 +895,13 @@ def check_stream(oracle, retired, tag):
     return n_ranges, n_points
 
 
-def serve(idx, stream, batch, metrics=None):
-    """One stream through ``Dispatcher.run`` at depth 1 on the wall clock;
-    returns (dispatcher, retired windows, seconds)."""
+def serve(idx, stream, batch, metrics=None, **kw):
+    """One stream through ``Dispatcher.run`` at depth 1 on the wall clock
+    (``kw``: the sharded path's ``mesh`` and ``capacity_factor``); returns
+    (dispatcher, retired windows, seconds)."""
     from repro_torch.pipeline import Dispatcher, WindowConfig
     disp = Dispatcher(idx, depth=1, max_span=MAX_SPAN, metrics=metrics,
-                      clock=time.perf_counter)
+                      clock=time.perf_counter, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if metrics is not None:
@@ -968,6 +1005,11 @@ def run_main_path(idx0, batches, lookup_q):
 
 
 def same_state(a, b) -> bool:
+    """Two indexes equal leaf for leaf (a ``ShardedPIIndex``: its stacked
+    shards and its fences)."""
+    if hasattr(a, "fences"):
+        return torch.equal(a.fences, b.fences) and \
+            same_state(a.shards, b.shards)
     la, lb = a.leaves(), b.leaves()
     return all(
         len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
@@ -1193,11 +1235,11 @@ def _timed(fn, times):
     return call
 
 
-def drive_durable(idx, stream, B, d, crash=None, hit=1):
-    """``stream`` through ``Dispatcher.run`` (depth 1) with a
-    ``Durability`` over ``d`` (per-window fsync, a snapshot every
-    SNAPSHOT_EVERY windows), dying at the ``hit``-th pass of fault point
-    ``crash`` when one is given.  The collector's seal hook copies each
+def drive_durable(idx, stream, B, d, crash=None, hit=1, **kw):
+    """``stream`` through ``Dispatcher.run`` (depth 1, ``kw`` to the
+    dispatcher) with a ``Durability`` over ``d`` (per-window fsync, a
+    snapshot every SNAPSHOT_EVERY windows), dying at the ``hit``-th pass of
+    fault point ``crash`` when one is given.  The collector's seal hook copies each
     window before the WAL sees it and records the acknowledged sequence
     numbers.  Returns a dict of the sealed copies, the acknowledged seqs,
     the dispatcher and the host times of appends, fsyncs and snapshots."""
@@ -1229,7 +1271,8 @@ def drive_durable(idx, stream, B, d, crash=None, hit=1):
             out["sealed"].append(copy_window(win))
             out["acked"].append(append(win))
 
-        disp = Dispatcher(idx, depth=1, max_span=MAX_SPAN, durability=dur)
+        disp = Dispatcher(idx, depth=1, max_span=MAX_SPAN, durability=dur,
+                          **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -1255,6 +1298,48 @@ def stream_from(stream, start: int):
     for name in ("t", "ops", "keys", "vals", "keys2"):
         setattr(rest, name, getattr(stream, name)[start:])
     return rest
+
+
+def reference_states(idx, sealed, **kw):
+    """The states of a dispatcher without durability over ``sealed``:
+    the initial one, then one after each window (``kw``: the sharded
+    path's mesh and capacity factor)."""
+    from repro_torch.pipeline import Dispatcher
+    states = [idx]
+    plain = Dispatcher(idx, depth=0, max_span=MAX_SPAN, **kw)
+    for w in sealed:
+        plain.submit(copy_window(w))
+        states.append(plain.index)
+    return states
+
+
+def crash_matrix(idx, stream, B, d, sealed, ref_states, tag, **kw):
+    """A crash at each fault point, then ``recover``: the recovered
+    windows hold every acknowledged one and the state equals the
+    reference state after them.  Yields (point, recovered index, sealed
+    windows, windows applied) after each point's checks."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.pipeline import recover
+    for point in CRASH_POINTS:
+        hit = 3 if point.startswith("wal.") else 2
+        crash = drive_durable(idx, stream, B, d, crash=point, hit=hit, **kw)
+        got = crash["sealed"]
+        assert [w.qids for w in got] == [w.qids for w in sealed[:len(got)]]
+        acked = crash["acked"][-1] if crash["acked"] else 0
+        rec, tail = recover(d, device=DEVICE)
+        step = CheckpointManager(os.path.join(d, "ckpt")).latest_step()
+        n_applied = step + len(tail)
+        assert acked <= n_applied <= len(got), (point, acked, n_applied)
+        if point == "wal.mid_append":
+            assert n_applied == acked, (point, acked, n_applied)
+        if point.startswith("ckpt."):
+            assert n_applied == acked == len(got), (point, acked, n_applied)
+        assert same_state(rec, ref_states[n_applied]), point
+        log(f"[{tag}] crash at {point} (pass {hit}): {len(got)} windows "
+            f"sealed, {acked} acknowledged, snapshot {step} + "
+            f"{len(tail)} replayed = {n_applied}; the state equals a "
+            f"dispatcher without durability over those windows")
+        yield point, rec, got, n_applied
 
 
 def run_durable(idx_m, stream, B):
@@ -1298,12 +1383,7 @@ def run_durable(idx_m, stream, B):
         f"{np.percentile(fsy, 99):.6f} ms ({len(fsy)} fsyncs); WAL bytes "
         f"{wal_bytes}")
 
-    # reference states: a dispatcher without durability over the windows
-    ref_states = [idx_m]
-    plain = Dispatcher(idx_m, depth=0, max_span=MAX_SPAN)
-    for w in sealed:
-        plain.submit(copy_window(w))
-        ref_states.append(plain.index)
+    ref_states = reference_states(idx_m, sealed)
     assert same_state(live, ref_states[-1]), "durability changed the state"
 
     # 1. crash-free: recover, and its two halves timed apart
@@ -1351,25 +1431,8 @@ def run_durable(idx_m, stream, B):
     del rec, rec_t, snap, replay
 
     # 2. a crash at each fault point; 3. resume after the first
-    for point in CRASH_POINTS:
-        hit = 3 if point.startswith("wal.") else 2
-        crash = drive_durable(idx_m, stream, B, d, crash=point, hit=hit)
-        got = crash["sealed"]
-        assert [w.qids for w in got] == [w.qids for w in sealed[:len(got)]]
-        acked = crash["acked"][-1] if crash["acked"] else 0
-        rec, tail = recover(d, device=DEVICE)
-        step = CheckpointManager(os.path.join(d, "ckpt")).latest_step()
-        n_applied = step + len(tail)
-        assert acked <= n_applied <= len(got), (point, acked, n_applied)
-        if point == "wal.mid_append":
-            assert n_applied == acked, (point, acked, n_applied)
-        if point.startswith("ckpt."):
-            assert n_applied == acked == len(got), (point, acked, n_applied)
-        assert same_state(rec, ref_states[n_applied]), point
-        log(f"[durable] crash at {point} (pass {hit}): {len(got)} windows "
-            f"sealed, {acked} acknowledged, snapshot {step} + "
-            f"{len(tail)} replayed = {n_applied}; the state equals a "
-            f"dispatcher without durability over those windows")
+    for point, rec, got, n_applied in crash_matrix(
+            idx_m, stream, B, d, sealed, ref_states, "durable"):
         if point != "wal.mid_append":
             continue
         start = sum(w.n_arrivals for w in got[:n_applied])
@@ -1387,6 +1450,474 @@ def run_durable(idx_m, stream, B):
             f"{n - 1} to the crash-free state, and recover after it too")
         del resumed, again
     shutil.rmtree(d)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the sharded path: S fence-routed shards on the card; overload control
+# ---------------------------------------------------------------------------
+
+def shard_config(n_keys):
+    """fig8_scalability's per-shard geometry for S shards of ``n_keys``
+    keys: capacity 2N/S, pending capacity N/S/4, fanout 8."""
+    from repro_torch import core as pi
+    return pi.PIConfig(capacity=2 * n_keys // SHARDS,
+                       pending_capacity=n_keys // SHARDS // 4, fanout=8,
+                       backend="cuda")
+
+
+def bucket_peak(windows, fences, cap):
+    """The fullest send bucket of these windows' real queries, and whether
+    any real query overflowed ``cap`` (the routing arithmetic of
+    ``core.distributed`` on the host)."""
+    sent = np.iinfo(np.int32).max
+    peak = 0
+    for w in windows:
+        b = w.keys.shape[0] // SHARDS
+        dest = np.clip(np.searchsorted(fences[1:-1], w.keys, side="right"),
+                       0, SHARDS - 1)
+        for s in range(SHARDS):
+            d = dest[s * b:(s + 1) * b][w.keys[s * b:(s + 1) * b] != sent]
+            peak = max(peak, int(np.bincount(d, minlength=SHARDS).max()))
+    return peak
+
+
+def check_shard_kernels(state, window, lo, hi):
+    """The path's kernels at a shard's shapes, each against its plain
+    version on the card: ``pi_probe`` and ``bitonic_argsort`` on the
+    S * cap lanes shard 0 executes for ``window`` (its keys routed there,
+    sentinel-padded), ``pi_range`` on (lo, hi) clipped to shard 0."""
+    from repro_torch.core import shard_of
+    from repro_torch.core.engine import range_tables
+    from repro_torch.kernels import bitonic_sort as KB
+    from repro_torch.kernels import pi_range as KR
+    from repro_torch.kernels import pi_search as K
+    shard = shard_of(state.shards, 0)
+    F = shard.config.fanout
+    f = state.fences.cpu().numpy()
+    lanes = SHARDS * SHARD_CAP
+    k = window.keys[(window.keys >= f[0]) & (window.keys < f[1])][:lanes]
+    q = np.full(lanes, np.iinfo(np.int32).max, np.int32)
+    q[:k.size] = k
+    q = torch.from_numpy(q).to(DEVICE)
+    got = K.pi_probe(shard.keys, shard.pkeys, q, fanout=F,
+                     levels=shard.levels)
+    want = K.pi_probe_plain(shard.keys, shard.pkeys, q, fanout=F,
+                            levels=shard.levels)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+        "pi_probe != plain on a shard"
+    perm = KB.bitonic_argsort(q)
+    assert torch.equal(perm, KB.bitonic_argsort_plain(q)) and \
+        torch.equal(perm, torch.argsort(q, stable=True)), \
+        "bitonic_argsort != plain on a shard's lanes"
+    slo = torch.maximum(lo, state.fences[0])
+    shi = torch.minimum(hi, state.fences[1] - 1)
+    live, rank, d2s, plive = range_tables(shard)
+    args = (shard.keys, live, shard.vals, rank, d2s, shard.pkeys,
+            shard.pvals, plive, slo, shi)
+    rgot = KR.pi_range(*args, fanout=F, max_span=MAX_SPAN,
+                       levels=shard.levels)
+    rwant = KR.pi_range_plain(*args, fanout=F, max_span=MAX_SPAN,
+                              levels=shard.levels)
+    assert all(torch.equal(a, b) for a, b in zip(rgot, rwant)), \
+        "pi_range != plain on a shard"
+    log(f"[sharded:kernels] shard 0 (C={shard.config.capacity}): pi_probe "
+        f"and bitonic_argsort on its {lanes} lanes of a window ({k.size} "
+        f"real), pi_range on {lo.numel()} lanes clipped to its fences "
+        f"({int(rwant[0].sum())} keys counted): each equal to its plain "
+        f"version")
+
+
+def point_windows(ycfg, keys_np, n_windows):
+    """The first ``n_windows`` collector windows (coalescing on) of the
+    point batches (write ratio 0.5, zipf 0.9)."""
+    from repro_torch import data
+    from repro_torch.pipeline import Collector, WindowConfig
+    col = Collector(WindowConfig(batch=ycfg.batch))
+    windows, w = [], 0
+    while len(windows) < n_windows:
+        ops, keys, vals = data.ycsb_batch(ycfg, keys_np, WINDOWS + 100 + w)
+        B = ycfg.batch
+        windows += col.offer_many(np.full(B, float(w)), ops, keys, vals,
+                                  np.arange(w * B, (w + 1) * B))[1]
+        w += 1
+    return windows[:n_windows]
+
+
+def run_point_windows(state, mesh, windows):
+    """``windows`` one by one through a depth-0 sharded ``Dispatcher``:
+    (retired windows, per-window latencies, seconds, final state)."""
+    from repro_torch.pipeline import Dispatcher
+    disp = Dispatcher(state, mesh=mesh, depth=0, max_span=MAX_SPAN,
+                      capacity_factor=CAPACITY_FACTOR,
+                      clock=time.perf_counter)
+    retired, lat = [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for w in windows:
+        t0 = time.perf_counter()
+        retired += disp.submit(copy_window(w))
+        lat.append(time.perf_counter() - t0)
+    return retired, lat, time.perf_counter() - t_all, disp.index
+
+
+def run_sharded(args, keys_np, vals_np, ycfg, base, single_p50_ms):
+    """Phase [sharded] (see the module docstring).  Returns the launch
+    counts of its point windows and its YCSB-E stream together."""
+    import dataclasses
+    from repro_torch import core as pi
+    from repro_torch.core import SEARCH
+    from repro_torch.core.index import with_backend
+    from repro_torch.pipeline import (Collector, DispatchOverflowError,
+                                      Dispatcher, PipelineMetrics,
+                                      WindowConfig)
+    B = ycfg.batch
+    cfg = shard_config(len(keys_np))
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = pi.build_sharded(cfg, SHARDS, keys_np, vals_np, device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    mesh = pi.make_mesh((SHARDS,), ("data",), device=DEVICE)
+    fences = state.fences.cpu().numpy()
+    _, cap = pi.make_sharded_executor(mesh, cfg, B // SHARDS,
+                                      capacity_factor=CAPACITY_FACTOR)
+    assert cap == SHARD_CAP, cap
+    log(f"[sharded] S={SHARDS} shards of C={cfg.capacity} PC="
+        f"{cfg.pending_capacity} F={cfg.fanout} W={cfg.seg_width_eff} "
+        f"H={cfg.num_levels}, live keys {state.live_count().tolist()} (sum "
+        f"{int(state.live_count().sum())}); built in {t_build:.3f} s, "
+        f"{(torch.cuda.memory_allocated() - base_mem) / 2**20:.1f} MiB on "
+        f"the card; windows of {B}, capacity factor {CAPACITY_FACTOR}: cap "
+        f"{cap}, {SHARDS * cap} lanes a shard")
+
+    windows = point_windows(ycfg, keys_np, SHARD_WINDOWS)
+    lo, hi = ycsb_e_lanes(ycfg, keys_np, SEED + 5)
+    check_shard_kernels(state, windows[0], lo, hi)
+    _, _, load, dropped = pi.execute_sharded(
+        state, mesh, *(torch.from_numpy(a).to(DEVICE) for a in
+                       (windows[0].ops, windows[0].keys, windows[0].vals)),
+        capacity_factor=CAPACITY_FACTOR)
+    load = load.cpu().numpy()
+    log(f"[sharded] a point window's load by shard {load.tolist()}, "
+        f"imbalance {pi.load_imbalance(load):.6f}, dropped "
+        f"{int(dropped.sum())}; the fullest send bucket over the "
+        f"{SHARD_WINDOWS} windows holds {bucket_peak(windows, fences, cap)} "
+        f"of {cap} real queries")
+
+    # -- point windows through the sharded Dispatcher ----------------------
+    for backend in ("cuda", "torch"):   # warm-up: first-call costs
+        warm = dataclasses.replace(state, shards=with_backend(state.shards,
+                                                              backend))
+        run_point_windows(warm, mesh, windows[:2])
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    retired, lat, wall, after = run_point_windows(state, mesh, windows)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    n_ops = sum(w.n_arrivals for w in windows)
+    lat_ms = np.array(lat) * 1e3
+    log(f"[sharded:cuda] {SHARD_WINDOWS} point windows ({n_ops} ops, "
+        f"{sum(w.occupancy for w in windows)} slots) through the sharded "
+        f"Dispatcher (depth 0) in {wall:.6f} s: {n_ops / wall:.1f} ops/s, "
+        f"window latency p50 {np.percentile(lat_ms, 50):.6f} ms p99 "
+        f"{np.percentile(lat_ms, 99):.6f} ms (the single shard's step: p50 "
+        f"{single_p50_ms:.6f} ms); rebuilds "
+        f"{sum(r.rebuilt for r in retired)}; kernel launches {launches}; "
+        f"peak {peak / 2**20:.1f} MiB above the base")
+    assert launches["pi_probe"] == launches["bitonic_sort"] == \
+        SHARDS * SHARD_WINDOWS and launches["pi_range"] == 0, launches
+    counts = dict(launches)
+
+    t0 = time.perf_counter()
+    oracle = Oracle(*base)
+    for k, res in enumerate(retired):
+        w = res.window
+        occ = w.occupancy
+        found, val = oracle.execute(w.ops[:occ], w.keys[:occ],
+                                    w.vals[:occ])
+        assert np.array_equal(res.found[:occ], found), f"window {k}: found"
+        assert np.array_equal(res.val[:occ].astype(np.int64), val), \
+            f"window {k}: val != RefIndex"
+    k_live, v_live = oracle.live()
+    rebuilt = pi.rebuild_sharded(after)
+    for tag, st in (("after the windows", after), ("rebuild_sharded",
+                                                   rebuilt)):
+        k, v = pi.collect_pairs(st)
+        assert np.array_equal(k.astype(np.int64), k_live), tag
+        assert np.array_equal(v.astype(np.int64), v_live), tag
+    for s in range(SHARDS):
+        assert pi.validate_layout(pi.shard_of(rebuilt.shards, s))
+    log(f"[sharded:cuda] every window's results equal RefIndex's; "
+        f"collect_pairs after the windows and after rebuild_sharded equal "
+        f"its live set (checked in {time.perf_counter() - t0:.3f} s)")
+    del oracle, rebuilt
+
+    t_state = dataclasses.replace(state, shards=with_backend(state.shards,
+                                                             "torch"))
+    t_retired, t_lat, t_wall, t_after = run_point_windows(t_state, mesh,
+                                                          windows)
+    assert same_windows(retired, t_retired), "cuda and torch windows differ"
+    assert same_state(after, t_after), "cuda and torch states differ"
+    log(f"[sharded:torch] the same windows in {t_wall:.6f} s "
+        f"({n_ops / t_wall:.1f} ops/s): results, flags and every stacked "
+        f"leaf bit-identical to the cuda backend")
+    del t_retired, t_after, t_state
+
+    if args.profile:
+        disp = Dispatcher(state, mesh=mesh, depth=0, max_span=MAX_SPAN,
+                          capacity_factor=CAPACITY_FACTOR)
+        extra = iter(copy_window(w) for w in windows[:args.profile + 1])
+        dev, ops = device_events(lambda: disp.submit(next(extra)),
+                                 args.profile)
+        n = args.profile
+        busy = sum(t for _, t, _ in dev) / n / 1e3
+        p50 = np.percentile(lat_ms, 50)
+        log(f"[profile:sharded] {n} windows: device {busy:.6f} ms a "
+            f"window, {100 * busy / p50:.2f}% of the unprofiled p50 window "
+            f"{p50:.6f} ms")
+        for title, rows in (("kernel", dev), ("operator", ops)):
+            for name, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
+                log(f"[profile:sharded] {title} {t / n / 1e3:10.6f} ms a "
+                    f"window ({count / n:.1f}x) {name[:90]}")
+    del after, retired
+
+    # -- a YCSB-E stream through Dispatcher.run ----------------------------
+    stream = ycsb_e_stream(ycfg, keys_np, SHARD_SERVE_WINDOWS, SEED + 3)
+    kw = dict(mesh=mesh, capacity_factor=CAPACITY_FACTOR)
+    for backend in ("cuda", "torch"):   # warm-up
+        warm = dataclasses.replace(state, shards=with_backend(state.shards,
+                                                              backend))
+        serve(warm, ycsb_e_stream(ycfg, keys_np, 2, SEED + 9), B, **kw)
+    met = PipelineMetrics()
+    reset_launches()
+    disp, retired, wall = serve(state, stream, B, met, **kw)
+    e_launches = launch_counts()
+    n_win = len(retired)
+    n_range_win = sum(r.rcnt is not None for r in retired)
+    summ = met.summary()
+    log(f"[sharded:serve] YCSB-E {len(stream)} arrivals in {n_win} windows "
+        f"({n_range_win} with ranges) in {wall:.6f} s: "
+        f"{len(stream) / wall:.1f} arrivals/s; latency p50 "
+        f"{summ['p50_ms']:.6f} ms p99 {summ['p99_ms']:.6f} ms; kernel "
+        f"launches {e_launches}")
+    assert e_launches["pi_range"] == SHARDS * n_range_win > 0, e_launches
+    assert e_launches["pi_probe"] == e_launches["bitonic_sort"] == \
+        SHARDS * n_win, e_launches
+    for name in counts:
+        counts[name] += e_launches[name]
+    oracle = Oracle(*base)
+    n_r, n_p = check_stream(oracle, retired, "sharded YCSB-E")
+    del oracle
+    tdisp, t_retired, t_wall = serve(
+        dataclasses.replace(state, shards=with_backend(state.shards,
+                                                       "torch")),
+        stream, B, **kw)
+    assert same_windows(retired, t_retired), "cuda and torch windows differ"
+    assert same_state(disp.index, tdisp.index), "final states differ"
+    log(f"[sharded:serve] {n_r} RANGE results agree with the pre-window "
+        f"oracle and {n_p} point results with RefIndex; the torch backend "
+        f"({len(stream) / t_wall:.1f} arrivals/s) bit-identical")
+    del disp, tdisp, retired, t_retired
+
+    # -- a skewed burst re-cuts the fences ---------------------------------
+    rng = np.random.default_rng(SEED + 13)
+    sorted_keys = np.sort(keys_np)
+    ranks = np.minimum((len(keys_np) * rng.random(B) ** 2).astype(np.int64),
+                       len(keys_np) - 1)     # zipfian, theta 0.5, unscrambled
+    burst = [torch.from_numpy(a).to(DEVICE) for a in (
+        np.full(B, SEARCH, np.int32), sorted_keys[ranks],
+        np.zeros(B, np.int32))]
+    _, (found, _), load, dropped = pi.execute_sharded(
+        state, mesh, *burst, capacity_factor=SHARDS)
+    assert bool(found.all()) and int(dropped.sum()) == 0
+    load = load.cpu().numpy()
+    f2 = pi.rebalance_from_load(fences, load, smoothing=1.0, key_lo=0,
+                                key_hi=ycfg.key_space)
+    t0 = time.perf_counter()
+    kk, vv = pi.collect_pairs(state)
+    state2 = pi.build_sharded(cfg, SHARDS, kk, vv, fences=f2, device=DEVICE)
+    torch.cuda.synchronize()
+    t_reshard = time.perf_counter() - t0
+    _, (found2, _), load2, _ = pi.execute_sharded(
+        state2, mesh, *burst, capacity_factor=SHARDS)
+    assert bool(found2.all())
+    load2 = load2.cpu().numpy()
+    i1, i2 = pi.load_imbalance(load), pi.load_imbalance(load2)
+    log(f"[sharded:rebalance] a zipfian burst (theta 0.5 over the key "
+        f"order) of {B} searches: load by shard {load.tolist()}, imbalance "
+        f"{i1:.6f}; fences re-cut by rebalance_from_load, the index "
+        f"rebuilt on them in {t_reshard:.3f} s: load {load2.tolist()}, "
+        f"imbalance {i2:.6f}")
+    assert i2 < i1, (i1, i2)
+    del state2, kk, vv
+
+    # -- routing drops: real ones raise, padding does not ------------------
+    tight = Dispatcher(state, mesh=mesh, depth=0, capacity_factor=0.25)
+    try:
+        tight.submit(copy_window(windows[0]))
+        raise AssertionError("a window over capacity did not raise")
+    except DispatchOverflowError as e:
+        log(f"[sharded:drops] capacity factor 0.25 (cap "
+            f"{pi.make_sharded_executor(mesh, cfg, B // SHARDS, capacity_factor=0.25)[1]}"
+            f"): {e.args[0][:60]}...")
+    col = Collector(WindowConfig(batch=B))
+    few = keys_np[:8]
+    for i, k in enumerate(few):
+        assert col.offer(float(i), SEARCH, int(k), 0, i)
+    (res,) = Dispatcher(state, mesh=mesh, depth=0,
+                        capacity_factor=0.25).submit(col.take())
+    assert res.per_arrival() == {i: (True, int(vals_np[i]))
+                                 for i in range(8)}
+    log(f"[sharded:drops] a window of 8 searches and {B - 8} pads at the "
+        f"same capacity: pads dropped, no error, every result right")
+
+    # -- durability of the sharded kind ------------------------------------
+    run_sharded_durable(state, mesh, ycfg, keys_np, B)
+    return counts
+
+
+def run_sharded_durable(state, mesh, ycfg, keys_np, B):
+    """The sharded kind of durability: the mixed stream (SHARD_DURABLE
+    windows' worth) with a ``Durability``; ``recover`` after a clean close
+    and after a crash at each fault point equals a sharded dispatcher
+    without durability over the recovered windows, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.pipeline import ArrivalConfig, make_arrivals, recover
+    d = DURABLE_DIR + "_sharded"
+    os.makedirs(os.path.dirname(d), exist_ok=True)
+    stream = make_arrivals(
+        ArrivalConfig(process="poisson", rate=1e6,
+                      n_arrivals=SHARD_DURABLE * B, range_frac=0.3,
+                      span_min=1, span_max=6400, seed=SEED + 4),
+        ycfg, keys_np)
+    kw = dict(mesh=mesh, capacity_factor=CAPACITY_FACTOR)
+    run = drive_durable(state, stream, B, d, **kw)
+    live, sealed = run["disp"].index, run["sealed"]
+    ref_states = reference_states(state, sealed, **kw)
+    assert same_state(live, ref_states[-1]), "durability changed the state"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, tail = recover(d, device=DEVICE)
+    torch.cuda.synchronize()
+    t_recover = time.perf_counter() - t0
+    assert rec.n_shards == SHARDS and same_state(rec, live), \
+        "recover != the live sharded state"
+    step = CheckpointManager(os.path.join(d, "ckpt")).latest_step()
+    snap_bytes = os.path.getsize(os.path.join(d, "ckpt", f"step_{step}",
+                                              "host0.npz"))
+    log(f"[sharded:durable] {len(sealed)} windows with a Durability "
+        f"(kind sharded, {SHARDS} shards): {len(stream.t) / run['wall']:.1f}"
+        f" arrivals/s; snapshots {[round(1e3 * x, 6) for x in run['snapshot']]}"
+        f" ms of {snap_bytes} B; recover {1e3 * t_recover:.6f} ms "
+        f"(snapshot {step} + {len(tail)} windows) equals the live state bit "
+        f"for bit")
+    del rec
+    for _ in crash_matrix(state, stream, B, d, sealed, ref_states,
+                          "sharded:durable", **kw):
+        pass
+    shutil.rmtree(d)
+
+
+def same_report(a, b) -> bool:
+    """Two ``RunReport``s equal field for field, window by window."""
+    return (a.results == b.results and a.range_results == b.range_results
+            and list(map(int, a.admitted)) == list(map(int, b.admitted))
+            and a.dropped == b.dropped and a.retries == b.retries
+            and same_windows(a.window_results, b.window_results))
+
+
+def run_overload(idx_m, keys_np, ycfg, base):
+    """Phase [overload] (see the module docstring).  Returns the cuda
+    run's launch counts."""
+    import dataclasses
+    from repro_torch.core import DELETE, SEARCH, RefIndex, live_items
+    from repro_torch.core.index import with_backend
+    from repro_torch.pipeline import (BREAKER_CLOSED, ArrivalConfig,
+                                      Collector, Dispatcher, OverloadConfig,
+                                      OverloadController, PipelineMetrics,
+                                      RetryPolicy, WindowConfig,
+                                      make_arrivals)
+    B = ycfg.batch
+    stream = make_arrivals(
+        ArrivalConfig(process="bursty", rate=1e6,
+                      n_arrivals=OVERLOAD_WINDOWS * B, seed=SEED + 11),
+        dataclasses.replace(ycfg, write_ratio=0.6), keys_np)
+    ocfg = OverloadConfig(shed_dup_at=0.15, shed_search_at=0.3,
+                          shed_write_at=0.95, max_recoveries=10_000,
+                          adapt_deadline=False)
+    out = {}
+    for backend in ("cuda", "torch"):
+        m = PipelineMetrics()
+        disp = Dispatcher(with_backend(idx_m, backend), depth=1, metrics=m,
+                          overload=ocfg, clock=lambda: 0.0,
+                          max_span=MAX_SPAN)
+        ctl = OverloadController(ocfg, metrics=m,
+                                 retry=RetryPolicy(max_retries=2), seed=9)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ctl.run(disp, Collector(WindowConfig(batch=B, deadline=5.0)),
+                      stream, chunk=B)
+        torch.cuda.synchronize()
+        out[backend] = (rep, m, disp, time.perf_counter() - t0,
+                        launch_counts())
+    rep, m, disp, wall, launches = out["cuda"]
+    s = m.summary()
+    n_win = len(rep.window_results)
+    log(f"[overload:cuda] {len(stream.t)} arrivals (write ratio 0.6, zipf "
+        f"0.9, bursty) at PC={MIXED_PC} through OverloadController.run: "
+        f"{n_win} windows in {wall:.6f} s, {len(stream.t) / wall:.1f} "
+        f"arrivals/s; shed {s['shed_by_class']} (total {s['shed_total']}), "
+        f"retries {rep.retries}, dropped for good {len(rep.dropped)}, "
+        f"goodput {rep.goodput}; pending fill peak "
+        f"{s['pending_fill_peak']:.6f}; rebuilds {s['rebuilds']}, breaker "
+        f"trips {disp.breaker_trips}, state {disp.breaker_state}; kernel "
+        f"launches {launches}")
+    assert s["shed_total"] > 0, "the burst never drove shedding"
+    assert s["shed_total"] == len(rep.dropped) + rep.retries
+    assert m.pending_fill_peak >= ocfg.shed_dup_at
+    assert disp.breaker_state == BREAKER_CLOSED
+    # a breaker's replay executes its windows again
+    assert launches["pi_probe"] == launches["bitonic_sort"] >= n_win > 0, \
+        launches
+    assert disp.breaker_trips or launches["pi_probe"] == n_win, launches
+    # zero acknowledged loss: the admitted subsequence, replayed in
+    # admission order against RefIndex, gives every acknowledged result
+    t0 = time.perf_counter()
+    adm = np.asarray(rep.admitted, dtype=np.int64)
+    assert sorted(rep.results) == sorted(rep.admitted)
+    assert set(rep.results) | set(rep.dropped) == set(range(len(stream.t)))
+    assert not set(rep.results) & set(rep.dropped)
+    ref = RefIndex(dict(base[0]))
+    want = ref.execute(stream.ops[adm], stream.keys[adm], stream.vals[adm])
+    for j, qid in enumerate(adm.tolist()):
+        found, val = rep.results[qid]
+        if stream.ops[qid] == SEARCH:
+            assert (val if found else None) == want[j], qid
+        elif stream.ops[qid] == DELETE:
+            assert found == (want[j] is not None), qid
+    k, v = live_items(disp.index)
+    rk = np.fromiter(ref.data.keys(), np.int64, len(ref.data))
+    rv = np.fromiter(ref.data.values(), np.int64, len(ref.data))
+    order = np.argsort(rk)
+    assert np.array_equal(k.astype(np.int64), rk[order])
+    assert np.array_equal(v.astype(np.int64), rv[order])
+    del ref
+    t_rep, t_m, t_disp, t_wall, _ = out["torch"]
+    assert same_report(rep, t_rep), "cuda and torch RunReports differ"
+    t_s = t_m.summary()
+    assert t_s.keys() == s.keys() and all(
+        t_s[k] == s[k] or (t_s[k] != t_s[k] and s[k] != s[k]) for k in s), \
+        "cuda and torch metrics differ"       # (NaN equals NaN here)
+    assert same_state(disp.index, t_disp.index)
+    log(f"[overload] the admitted subsequence ({adm.size} arrivals) "
+        f"replays exactly against RefIndex, every arrival acknowledged or "
+        f"reported dropped, the final live set equal (checked in "
+        f"{time.perf_counter() - t0:.3f} s); the torch backend "
+        f"({len(stream.t) / t_wall:.1f} arrivals/s) gives an identical "
+        f"RunReport, metrics and state")
     return launches
 
 
@@ -1781,6 +2312,7 @@ def main(argv=None) -> int:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     summarize("cuda", run_cuda, ycfg.batch)
+    single_p50 = float(np.percentile(np.array(run_cuda["lat"]) * 1e3, 50))
     log(f"[main:cuda] kernel launches {launches}; peak device memory "
         f"{peak / 2**20:.1f} MiB")
     assert run_cuda["incremental"], "rebuild after the windows: not incremental"
@@ -1831,26 +2363,42 @@ def main(argv=None) -> int:
     durable_launches = run_durable(idx_m, mixed, ycfg.batch)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 6. the flash kernel against its plain version --------------------
+    # -- 6. the sharded path ----------------------------------------------
+    sharded_launches = run_sharded(args, keys_np, vals_np, ycfg, base,
+                                   single_p50)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 7. overload control ------------------------------------------------
+    overload_launches = run_overload(idx_m, keys_np, ycfg, base)
+    del idx_m
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 8. the flash kernel against its plain version --------------------
     flash = check_flash(ITERS)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 7. the LM path: prefill and decode at full width ------------------
+    # -- 9. the LM path: prefill and decode at full width ------------------
     lm = run_lm()
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 8. the LM server ---------------------------------------------------
+    # -- 10. the LM server --------------------------------------------------
     serve_lm_launches = run_serve_lm(lm["cfg"], lm["params"])
     lm_launches = lm["launches"]
     del lm
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 9. launch counts -------------------------------------------------
+    # -- 11. launch counts ------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
-    paths = (launches, serve_launches, durable_launches, lm_launches,
-             serve_lm_launches)
+    # the sharded path: S a window, pi_range S a range-bearing window
+    assert sharded_launches["pi_probe"] == \
+        sharded_launches["bitonic_sort"] >= SHARDS * SHARD_WINDOWS, \
+        sharded_launches
+    assert sharded_launches["pi_range"] >= SHARDS, sharded_launches
+    assert overload_launches["pi_probe"] >= 1, overload_launches
+    paths = (launches, serve_launches, durable_launches, sharded_launches,
+             overload_launches, lm_launches, serve_lm_launches)
 
     def total(name):
         return sum(p[name] for p in paths)

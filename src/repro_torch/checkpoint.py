@@ -14,13 +14,15 @@ snapshot written by either package restores in the other:
     re-raises from the next ``wait()`` instead of vanishing with the
     thread;
   * ``restore`` checks every leaf's shape and dtype against the target
-    and places the tensors on the card unless asked otherwise.
+    and places the tensors on the card unless asked otherwise — or, given
+    ``shardings``, each leaf where that tree says: the elastic restore,
+    onto another placement than the one saved.
 
 A tree is a ``PIIndex`` (its leaves in the JAX ``tree_flatten`` order,
 ``levels`` expanded: ``core.index.flat_leaves``), a dict (sorted keys, as
 ``jax.tree_util`` orders them), a list or tuple, or a leaf (a tensor or a
-numpy array).  Elastic restore onto another sharding belongs to the
-sharded path (ROADMAP A9) and is refused.
+numpy array).  A sharded index is saved as the tuple ``(shards,
+fences)`` (``pipeline.recovery``), its shards' leaves stacked.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import index as pi
+from repro_torch.core.distributed import Mesh
 from repro_torch.faults import faultpoint
 
 
@@ -60,6 +63,30 @@ def _flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
 
         return [x for leaves, _ in parts for x in leaves], rebuild
     return [tree], lambda xs: xs[0]
+
+
+def _placements(tree, shardings) -> List[torch.device]:
+    """One device a leaf of ``tree``.  ``shardings`` follows the tree's
+    structure down to some node; there a device (or a ``Mesh``: its
+    device) places every leaf below it."""
+    if isinstance(shardings, Mesh):
+        shardings = shardings.device
+    if isinstance(shardings, (torch.device, str)):
+        return [pi._device(shardings)] * len(_flatten(tree)[0])
+    if isinstance(tree, pi.PIIndex):
+        tree, shardings = pi.flat_leaves(tree), pi.flat_leaves(shardings)
+    if isinstance(tree, dict):
+        if sorted(tree) != sorted(shardings):
+            raise ValueError(f"shardings keys {sorted(shardings)} != tree "
+                             f"keys {sorted(tree)}")
+        return [d for k in sorted(tree)
+                for d in _placements(tree[k], shardings[k])]
+    if isinstance(tree, (list, tuple)) and \
+            isinstance(shardings, (list, tuple)) and \
+            len(tree) == len(shardings):
+        return [d for t, sh in zip(tree, shardings)
+                for d in _placements(t, sh)]
+    raise ValueError(f"shardings {shardings!r} do not match the tree")
 
 
 def _host_copy(leaf) -> np.ndarray:
@@ -168,11 +195,10 @@ class CheckpointManager:
         """Restore into the structure of ``target_tree``, every leaf a
         tensor on ``device`` (default: the card).  The target's leaves
         give only shapes and dtypes, so it may live on the ``meta``
-        device (``core.index.leaf_spec``)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto shardings (elastic restore) belongs to the "
-                "sharded path, not ported yet (ROADMAP A9)")
+        device (``core.index.leaf_spec``).  ``shardings``, if given,
+        places the leaves instead (elastic restore): a tree of the
+        target's structure whose leaves are devices, or a device or a
+        one-device ``Mesh`` for every leaf below a node."""
         leaves, rebuild = _flatten(target_tree)
         path = os.path.join(self.dir, f"step_{step}", "host0.npz")
         with np.load(path) as z:
@@ -185,8 +211,11 @@ class CheckpointManager:
                 raise ValueError(
                     f"checkpoint dtype {got.dtype} != target "
                     f"{_np_dtype(want)}")
-        dev = pi._device(device)
-        return rebuild([torch.from_numpy(a).to(dev) for a in loaded])
+        places = _placements(target_tree, shardings) \
+            if shardings is not None else \
+            [pi._device(device)] * len(loaded)
+        return rebuild([torch.from_numpy(a).to(d)
+                        for a, d in zip(loaded, places)])
 
     def restore_latest(self, target_tree: Any, shardings: Any = None, *,
                        device=None):

@@ -1,11 +1,18 @@
-"""Windowed dispatch for one PI shard: collector windows → ranges → execute.
+"""Windowed dispatch: collector windows → ranges → execute.
 
-Counterpart of ``repro.pipeline.dispatcher`` for a single ``PIIndex``.
-The ``Dispatcher`` owns the index state and runs sealed collector windows
-against it in order.  A window's RANGE lanes run first, against the
-pre-window state (``pipeline.ranges.execute_ranges``: one ``pi_range``
-launch on the card); then its point view runs through ``step_single``:
-execute, the overflow snapshot, and the rebuild when one is due.
+Counterpart of ``repro.pipeline.dispatcher``.  The ``Dispatcher`` owns the
+index state and runs sealed collector windows against it in order.  A
+window's RANGE lanes run first, against the pre-window state
+(``pipeline.ranges.execute_ranges``: one ``pi_range`` launch on the card);
+then its point view runs through ``step_single``: execute, the overflow
+snapshot, and the rebuild when one is due.
+
+Routing: a ``PIIndex`` executes locally through ``step_single``; a
+``ShardedPIIndex`` (with the ``mesh`` it lives on) goes through
+``core.distributed.execute_sharded``, whose fence partitioning routes each
+window's per-shard slices, then ``maybe_rebuild_shards`` rebuilds the
+shards that are due; its ranges go through
+``pipeline.ranges.execute_ranges_sharded``.
 
 PyTorch launches asynchronously, so with ``depth >= 1`` the host forms
 window k+1 while the card still runs window k, and a window's results
@@ -22,6 +29,9 @@ dropped — data loss.  The dispatcher snapshots the flag after every
 execute (the rebuild that follows resets it on the state) and raises
 ``PendingOverflowError`` at retirement; the failure then poisons the
 dispatcher, so every later ``submit``/``flush`` raises it again.
+Sharded routing has an analogous loss mode — a fence bucket exceeding its
+``capacity_factor`` drops real queries — surfaced as
+``DispatchOverflowError`` the same way (dropped padding is not counted).
 
 With an ``OverloadConfig`` whose breaker is armed, a pending overflow is
 no longer fatal: a **circuit breaker** rolls the index back to the state
@@ -33,15 +43,13 @@ Repeated trips within a rolling interval degrade to a read-only mode
 (write windows rejected with ``ReadOnlyModeError``, reads served); only
 an unrecoverable replay — an overflow from an empty pending buffer, a
 geometry error — or a trip while already read-only latches the poisoned
-state.
+state.  The breaker does not apply to the sharded path, whose routing
+drops have no rollback point.
 
 Durability (``pipeline.recovery.Durability``): ``run`` hands the
 collector ``durability.on_seal``, so every window is in the WAL before it
 is dispatched, and ``submit`` calls ``durability.maybe_snapshot`` after
 each window's step.
-
-Not ported yet: the sharded path (ROADMAP A9); the constructor refuses
-it.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core import index as pi
 from repro_torch.core.batch import RANGE, SEARCH
 from repro_torch.kernels.pi_search import sentinel_for
@@ -61,7 +70,7 @@ from repro_torch.pipeline.overload import (BREAKER_CLOSED, BREAKER_POISONED,
                                            BREAKER_READ_ONLY,
                                            BREAKER_RECOVERING,
                                            OverloadConfig, ReadOnlyModeError)
-from repro_torch.pipeline.ranges import execute_ranges
+from repro_torch.pipeline.ranges import execute_ranges, execute_ranges_sharded
 
 
 class PendingOverflowError(RuntimeError):
@@ -76,9 +85,12 @@ class PendingOverflowError(RuntimeError):
 
 
 class DispatchOverflowError(RuntimeError):
-    """Sharded routing dropped queries (a fence bucket overflowed).  Only
-    the sharded path raises it (ROADMAP A9); it poisons the dispatcher
-    like ``PendingOverflowError``."""
+    """Sharded routing dropped queries: a fence bucket exceeded its send
+    capacity (``capacity_factor`` too small for the window's skew).
+
+    ``windows`` carries every in-flight ``Window`` at failure time — the
+    failing one first (see ``PendingOverflowError``).
+    """
 
     windows: List[Window] = []
 
@@ -166,7 +178,8 @@ class _InFlight:
     val: torch.Tensor
     overflow: torch.Tensor  # snapshot scalar, taken before the rebuild reset
     rebuilt: torch.Tensor
-    incr: torch.Tensor      # rebuild tier taken
+    incr: Optional[torch.Tensor]     # rebuild tier taken (None: sharded)
+    dropped: Optional[torch.Tensor]  # sharded routing drops (None: local)
     pn: torch.Tensor        # pending fill high-water (pre-rebuild)
     rcnt: Optional[torch.Tensor] = None  # RANGE counts (pre-window state)
     rsum: Optional[torch.Tensor] = None  # RANGE value sums
@@ -180,17 +193,20 @@ class Dispatcher:
     """Owns the index state; executes sealed windows against it in order."""
 
     def __init__(self, index, *, mesh=None, depth: int = 1,
-                 check_overflow: bool = True, max_span: int = 1024,
+                 check_overflow: bool = True,
+                 capacity_factor: float = 2.0,
+                 max_span: int = 1024,
                  metrics: Optional[PipelineMetrics] = None,
                  durability=None,
                  overload: Optional[OverloadConfig] = None,
                  clock=time.perf_counter):
-        if mesh is not None or not isinstance(index, pi.PIIndex):
-            raise NotImplementedError(
-                "a sharded index or a mesh is not ported yet (ROADMAP A9)")
+        if isinstance(index, dist.ShardedPIIndex) and mesh is None:
+            raise ValueError("a ShardedPIIndex needs its mesh for routing")
         self._index = index
+        self._mesh = mesh
         self.depth = max(0, int(depth))
         self.check_overflow = check_overflow
+        self.capacity_factor = capacity_factor
         # occupied-key scan budget per RANGE (core.range_agg's max_span)
         self.max_span = int(max_span)
         self.metrics = metrics
@@ -199,7 +215,8 @@ class Dispatcher:
         self.durability = durability
         # overload tier (pipeline.overload.OverloadConfig): with a breaker
         # armed, a pending overflow recovers (rollback + repack + replay)
-        # instead of poisoning.  None keeps the poisoning contract.
+        # instead of poisoning.  None keeps the poisoning contract, as does
+        # the sharded path.
         self.overload = overload
         self._clock = clock
         self._inflight: List[_InFlight] = []
@@ -209,10 +226,15 @@ class Dispatcher:
         self._read_only_since: Optional[float] = None
         self.breaker_trips = 0
         self.breaker_recoveries = 0
-        self._pending_capacity = int(index.config.pending_capacity)
+        cfg = index.shards.config if self._sharded else index.config
+        self._pending_capacity = int(cfg.pending_capacity)
 
     @property
-    def index(self) -> pi.PIIndex:
+    def _sharded(self) -> bool:
+        return isinstance(self._index, dist.ShardedPIIndex)
+
+    @property
+    def index(self):
         """Current index state (reading its tensors may wait for the card)."""
         return self._index
 
@@ -259,6 +281,22 @@ class Dispatcher:
 
     # -- execution ---------------------------------------------------------
 
+    def _step(self, ops, keys, vals):
+        """One execute + rebuild-if-due → (found, val, ovf, rebuilt, incr,
+        dropped, pn)."""
+        if self._sharded:
+            state, (found, val), _, dropped = dist.execute_sharded(
+                self._index, self._mesh, ops, keys, vals,
+                capacity_factor=self.capacity_factor)
+            pn = state.shards.pn.max()  # hottest shard's fill high-water
+            shards, ovf, rebuilt = dist.maybe_rebuild_shards(state.shards)
+            self._index = dist.ShardedPIIndex(
+                shards=shards, fences=state.fences, n_shards=state.n_shards)
+            return found, val, ovf, rebuilt, None, dropped.sum(), pn
+        self._index, found, val, ovf, rebuilt, incr, pn = step_single(
+            self._index, ops, keys, vals)
+        return found, val, ovf, rebuilt, incr, None, pn
+
     def _tensors(self, *arrays):
         """Window arrays as tensors on the index's device."""
         dev = self._index.device
@@ -295,7 +333,8 @@ class Dispatcher:
                 np.where(is_r, sent, keys).astype(keys.dtype))
 
     def _breaker_armed(self) -> bool:
-        return self.overload is not None and self.overload.breaker
+        return (self.overload is not None and self.overload.breaker
+                and not self._sharded)
 
     def submit(self, window: Window) -> List[WindowResult]:
         """Dispatch a sealed window; retire whatever exceeds the depth.
@@ -319,15 +358,17 @@ class Dispatcher:
         # window observes the index as of the window boundary
         rcnt = rsum = None
         if self._window_has_ranges(window):
-            rcnt, rsum = execute_ranges(
+            ranges = execute_ranges_sharded if self._sharded \
+                else execute_ranges
+            rcnt, rsum = ranges(
                 self._index, *self._tensors(window.ops, window.keys,
                                             window.keys2), self.max_span)
         ops, keys = self._point_view(window)
-        self._index, found, val, ovf, rebuilt, incr, pn = step_single(
-            self._index, *self._tensors(ops, keys, window.vals))
+        found, val, ovf, rebuilt, incr, dropped, pn = self._step(
+            *self._tensors(ops, keys, window.vals))
         self._inflight.append(_InFlight(window, found, val, ovf, rebuilt,
-                                        incr, pn, rcnt=rcnt, rsum=rsum,
-                                        pre_index=pre))
+                                        incr, dropped, pn, rcnt=rcnt,
+                                        rsum=rsum, pre_index=pre))
         if self.durability is not None:
             # the new index state reflects every window up to and
             # including this one, so window.seq is its WAL position
@@ -478,7 +519,7 @@ class Dispatcher:
             dev = self._index.device
             self._inflight.append(_InFlight(
                 w, found, val, ovf, torch.tensor(True, device=dev),
-                torch.tensor(False, device=dev), pn, rcnt=f.rcnt,
+                torch.tensor(False, device=dev), None, pn, rcnt=f.rcnt,
                 rsum=f.rsum))
         self.breaker_recoveries += 1
         if self.metrics is not None:
@@ -520,10 +561,16 @@ class Dispatcher:
                 "pending buffer overflowed while executing a window: net "
                 "inserts were dropped.  Grow PIConfig.pending_capacity "
                 "above the window batch, or rebuild more aggressively.")
+        if self.check_overflow and infl.dropped is not None \
+                and int(infl.dropped) > 0:
+            raise DispatchOverflowError(
+                f"fence routing dropped {int(infl.dropped)} queries: a "
+                f"shard's send bucket overflowed.  Raise capacity_factor "
+                f"({self.capacity_factor}) or rebalance the fences.")
         res = WindowResult(
             window=infl.window, found=found, val=val,
             t_retired=self._clock(), rebuilt=bool(infl.rebuilt),
-            rebuilt_incremental=bool(infl.incr),
+            rebuilt_incremental=infl.incr is not None and bool(infl.incr),
             pending_fill=int(infl.pn) / self._pending_capacity,
             rcnt=infl.rcnt.cpu().numpy() if infl.rcnt is not None else None,
             rsum=infl.rsum.cpu().numpy() if infl.rsum is not None else None)

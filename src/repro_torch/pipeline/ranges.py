@@ -17,15 +17,19 @@ and flows through the same collect → dispatch stages as point ops:
   construction.  Eager PyTorch compiles nothing, so where the JAX package
   counts traces of this function the port counts kernel launches:
   ``kernels.pi_range.LAUNCHES["pi_range"]`` rises by one per
-  range-bearing window.
-
-The sharded fan-out ``execute_ranges_sharded`` moves with sharding.
+  range-bearing window (S per window on a sharded index).
+* **sharding** — a range spanning several shards fans out per-shard
+  clipped subranges ``[max(lo, fence_s), min(hi, fence_{s+1} - 1)]`` and
+  sums the ``(count, sum)`` partials; shards own disjoint key intervals,
+  so the sum is exact (no double counting).  Read-only, so no routing:
+  every shard sees every query lane.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.batch import RANGE
+from repro_torch.core.distributed import shard_of
 from repro_torch.core.engine import get_engine
 from repro_torch.kernels.pi_search import sentinel_for
 
@@ -50,10 +54,38 @@ def execute_ranges(index, ops, keys, keys2, max_span: int):
     execute); the window arrays move to its device.  Returns two (batch,)
     int32 tensors; non-range slots read (0, 0).  Read-only.
     """
-    dev = index.device
-    kdt = index.keys.dtype
-    ops = torch.as_tensor(ops).to(device=dev)
-    keys = torch.as_tensor(keys).to(device=dev)
-    keys2 = torch.as_tensor(keys2).to(device=dev)
-    lo, hi = _range_lanes(ops, keys, keys2, kdt)
+    lo, hi = _range_lanes(*_on(index.device, ops, keys, keys2),
+                          index.keys.dtype)
     return get_engine(index.config).range_agg(index, lo, hi, max_span)
+
+
+def execute_ranges_sharded(state, ops, keys, keys2, max_span: int):
+    """Sharded fan-out/reduce: per-shard subranges, summed partials.
+
+    Shard ``s`` owns keys in ``[fences[s], fences[s+1])``, so its
+    subrange is the query clipped to that interval — empty (lo > hi,
+    hence inert) when the range misses the shard — and the global
+    ``(count, sum)`` is the sum of partials over disjoint intervals (int32,
+    wrapping as the JAX sums do).  ``max_span`` is a *per-shard* budget,
+    so splitting can only widen what a span cap would truncate.  ``state``
+    is a ``ShardedPIIndex``; one ``range_agg`` a shard (on the ``cuda``
+    backend one ``pi_range`` launch a shard).
+    """
+    fences = state.fences
+    lo, hi = _range_lanes(*_on(state.device, ops, keys, keys2),
+                          fences.dtype)
+    cnt = torch.zeros(lo.shape, dtype=torch.int32, device=state.device)
+    sm = torch.zeros_like(cnt)
+    for s in range(state.n_shards):
+        shard = shard_of(state.shards, s)
+        slo = torch.maximum(lo, fences[s])
+        shi = torch.minimum(hi, fences[s + 1] - 1)
+        pc, ps = get_engine(shard.config).range_agg(shard, slo, shi,
+                                                    max_span)
+        cnt = cnt + pc
+        sm = sm + ps
+    return cnt, sm
+
+
+def _on(device, *arrays):
+    return [torch.as_tensor(a).to(device=device) for a in arrays]

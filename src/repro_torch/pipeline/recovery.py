@@ -1,9 +1,11 @@
 """Snapshot + WAL-tail recovery: the durability tier's coordinator.
 
-Counterpart of ``repro.pipeline.recovery`` for one ``PIIndex``, with the
-same directory layout, so a directory written by either package recovers
-in the other (``durability.json``, ``ckpt/step_<seq>/host0.npz``,
-``wal/wal-<seq>.seg``).
+Counterpart of ``repro.pipeline.recovery``, for a ``PIIndex`` and for a
+``ShardedPIIndex``, with the same directory layout, so a directory written
+by either package recovers in the other (``durability.json`` with its
+``kind`` and ``n_shards``, ``ckpt/step_<seq>/host0.npz``,
+``wal/wal-<seq>.seg``).  A sharded snapshot holds the stacked shard
+leaves, then the fences.
 
 ``Durability`` bundles the admission-point WAL (``pipeline/wal.py``) with
 periodic index snapshots (``checkpoint.py``) behind two hooks the live
@@ -26,7 +28,7 @@ replayed records.
 Contract: recovery always lands on a window boundary; it includes every
 acknowledged window (the fsync policy defines acknowledged), may include a
 fully written but unacknowledged suffix, and never replays a torn tail
-record.  The sharded kind (ROADMAP A9) is not ported yet and is refused.
+record.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import os
 from typing import List, Optional, Tuple
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import distributed as dist
 from repro_torch.core import index as pi
 from repro_torch.pipeline.dispatcher import Dispatcher
 from repro_torch.pipeline.wal import (WalRecord, WalWriter, read_wal,
@@ -60,9 +63,17 @@ class RecoveryError(RuntimeError):
     anything, so this means the directory never finished initializing)."""
 
 
-def _refuse_sharded():
-    raise NotImplementedError(
-        "durability of a sharded index is not ported yet (ROADMAP A9)")
+def _snapshot_tree(index):
+    if isinstance(index, dist.ShardedPIIndex):
+        return (index.shards, index.fences)
+    return index
+
+
+def _empty_tree(cfg: pi.PIConfig, kind: str, n_shards: int):
+    """The leaf shapes and dtypes a snapshot of ``kind`` restores into."""
+    if kind == "sharded":
+        return dist.leaf_spec_sharded(cfg, n_shards)
+    return pi.leaf_spec(cfg)
 
 
 class Durability:
@@ -82,8 +93,6 @@ class Durability:
                  segment_bytes: int = 1 << 22, metrics=None,
                  async_snapshots: bool = False,
                  group_commit: "int | None" = None):
-        if not isinstance(index, pi.PIIndex):
-            _refuse_sharded()
         self.dir = directory
         self.snapshot_every = snapshot_every
         self.metrics = metrics
@@ -98,9 +107,14 @@ class Durability:
         # snapshot() calls stay blocking regardless.
         self.async_snapshots = async_snapshots
         self._truncate_pending = False
-        self.kind = "single"
-        self.n_shards = 1
-        self.config = index.config
+        if isinstance(index, dist.ShardedPIIndex):
+            self.kind = "sharded"
+            self.n_shards = index.n_shards
+            self.config = index.shards.config
+        else:
+            self.kind = "single"
+            self.n_shards = 1
+            self.config = index.config
         os.makedirs(directory, exist_ok=True)
         meta_path = os.path.join(directory, META_NAME)
         if not os.path.exists(meta_path):
@@ -165,7 +179,7 @@ class Durability:
         if seq is None:
             seq = self.wal.last_seq
         prev_pending = self._truncate_pending
-        self.ckpt.save(seq, index, blocking=blocking,
+        self.ckpt.save(seq, _snapshot_tree(index), blocking=blocking,
                        meta={"wal_seq": seq, "kind": self.kind})
         self._last_snap = seq
         if blocking:
@@ -196,30 +210,32 @@ class Durability:
         self.wal.close()
 
 
-def recover(directory: str, *, metrics=None, overload=None, device=None
-            ) -> Tuple[pi.PIIndex, List[WalRecord]]:
+def recover(directory: str, *, mesh=None, metrics=None, overload=None,
+            device=None) -> Tuple[object, List[WalRecord]]:
     """Rebuild the index from the latest snapshot + the WAL tail.
 
-    Returns ``(index, replayed)``: the ``PIIndex`` on ``device`` (default:
-    the card) and the ``WalRecord``s applied on top of the snapshot, in
-    order.  The replay goes through ``Dispatcher.submit`` — the execute
-    and rebuild path the live pipeline ran — so the result is
-    bit-identical to the pre-crash state at the last durable window.
+    Returns ``(index, replayed)``: the ``PIIndex`` or ``ShardedPIIndex``
+    (per the directory's metadata) on ``device`` (default: the card) and
+    the ``WalRecord``s applied on top of the snapshot, in order.  A
+    sharded index replays through ``mesh``; without one, through a mesh of
+    ``n_shards`` shards on ``device``.  The replay goes through
+    ``Dispatcher.submit`` — the execute and rebuild path the live
+    pipeline ran — so the result is bit-identical to the pre-crash state
+    at the last durable window.
 
     Raises ``RecoveryError`` when the directory has no metadata or no
     complete snapshot, ``WalCorruptionError`` on interior log damage (a
-    torn tail is repaired by exclusion, not an error), and
-    ``NotImplementedError`` for a sharded directory (ROADMAP A9).  With
-    ``overload`` the replay runs behind the breaker, as the live
-    dispatcher with that config did.
+    torn tail is repaired by exclusion, not an error).  With ``overload``
+    the replay runs behind the breaker, as the live dispatcher with that
+    config did (the sharded path has no breaker).
     """
     meta_path = os.path.join(directory, META_NAME)
     if not os.path.exists(meta_path):
         raise RecoveryError(f"no {META_NAME} in {directory}")
     with open(meta_path) as f:
         meta = json.load(f)
-    if meta["kind"] != "single":
-        _refuse_sharded()
+    kind = meta["kind"]
+    n_shards = int(meta.get("n_shards", 1))
     config = dict(meta["config"])
     backend = config["backend"]
     if backend not in BACKEND_FROM_DISK:
@@ -234,11 +250,21 @@ def recover(directory: str, *, metrics=None, overload=None, device=None
             f"no complete snapshot under {directory}/ckpt — the initial "
             f"blocking snapshot never finished, so nothing was ever "
             f"acknowledged")
-    index = ckpt.restore(step, pi.leaf_spec(cfg), device=device)
+    tree = ckpt.restore(step, _empty_tree(cfg, kind, n_shards),
+                        device=device)
+    if kind == "sharded":
+        shards, fences = tree
+        index = dist.ShardedPIIndex(shards=shards, fences=fences,
+                                    n_shards=n_shards)
+        if mesh is None:
+            mesh = dist.make_mesh((n_shards,), ("data",),
+                                  device=index.device)
+    else:
+        index = tree
 
     tail = [r for r in read_wal(os.path.join(directory, "wal"))
             if r.seq > step]
-    disp = Dispatcher(index, depth=0, overload=overload)
+    disp = Dispatcher(index, mesh=mesh, depth=0, overload=overload)
     for rec in tail:
         disp.submit(record_window(rec))
     if metrics is not None:

@@ -28,8 +28,8 @@ reinterpret the axis (the benchmark replays in wall-clock, tests replay in
 virtual time); only monotonicity is relied upon downstream.
 
 A copy of ``repro.pipeline.workload``: the same seed gives the same
-stream in both packages.  The client retry policy moves with the
-overload tier.
+stream in both packages, and ``RetryPolicy`` draws the same jitter from
+the same generator.
 """
 from __future__ import annotations
 
@@ -42,6 +42,44 @@ from repro_torch.core.batch import RANGE
 from repro_torch.kernels.pi_search import sentinel_for
 
 PROCESSES = ("poisson", "bursty", "diurnal", "hotkey")
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Client-side reaction to load shedding: bounded exponential backoff.
+
+    When the admission tier sheds an arrival it returns a retry-after
+    hint; the client re-enqueues the arrival at
+    ``hint * backoff_factor**attempt``, floored at ``backoff_base`` and
+    jittered by ``±jitter`` (full-deterministic given the caller's rng) so
+    a shed burst does not re-arrive as the same burst.  ``max_retries``
+    bounds the total attempts; an arrival that exhausts them is dropped
+    for good and counted in ``PipelineMetrics.retry_exhausted``.
+    """
+
+    max_retries: int = 3
+    backoff_base: float = 1e-3   # floor delay (virtual seconds)
+    backoff_factor: float = 2.0
+    jitter: float = 0.1          # fractional spread, delay * (1 ± jitter)
+
+    def __post_init__(self):
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, "
+                             f"got {self.max_retries}")
+        if self.backoff_factor < 1.0:
+            raise ValueError(f"backoff_factor must be >= 1, "
+                             f"got {self.backoff_factor}")
+        if not 0.0 <= self.jitter < 1.0:
+            raise ValueError(f"jitter must be in [0, 1), got {self.jitter}")
+
+    def next_delay(self, attempt: int, hint: float,
+                   rng: np.random.Generator) -> float:
+        """Backoff delay before retry number ``attempt`` (0-based)."""
+        base = max(float(hint), self.backoff_base)
+        delay = base * self.backoff_factor ** attempt
+        if self.jitter:
+            delay *= 1.0 + self.jitter * (2.0 * rng.random() - 1.0)
+        return delay
 
 
 @dataclasses.dataclass(frozen=True)

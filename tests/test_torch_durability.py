@@ -566,14 +566,27 @@ def test_ckpt_restore_mismatch_raises(tmp_path, field, match):
         m.restore(1, other, device="cpu")
 
 
-def test_ckpt_refuses_shardings_and_needs_a_card_by_default(tmp_path):
+def test_ckpt_restores_onto_shardings_and_needs_a_card_by_default(tmp_path):
+    """Elastic restore: ``shardings`` places each leaf — a tree of
+    devices, or one device for a whole subtree; a tree that does not
+    match is refused.  Without it the leaves go to the card."""
     m = tckpt.CheckpointManager(str(tmp_path))
     m.save(1, tree("dict"), blocking=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        m.restore(1, target_like("dict"), shardings=object())
+    m.save(2, tree("index"), blocking=True)
+    got = m.restore(1, target_like("dict"),
+                    shardings={"a": "cpu", "b": ["cpu", torch.device("cpu")]})
+    assert_tree_equal(got, tree("dict"))
+    assert_tree_equal(m.restore(1, target_like("dict"), shardings="cpu"),
+                      tree("dict"))
+    assert_tree_equal(m.restore(2, target_like("index"), shardings="cpu"),
+                      tree("index"))
+    with pytest.raises(ValueError, match="shardings"):
+        m.restore(1, target_like("dict"), shardings={"a": "cpu"})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             m.restore(1, target_like("dict"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            m.restore(1, target_like("dict"), shardings="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -979,21 +992,26 @@ def test_jax_reads_a_port_directory(tmp_path, backend):
         [r.seq for r in replayed]
 
 
-def test_sharded_and_overload_are_refused(tmp_path):
-    """The sharded kind is refused (ROADMAP A9).  An overload config is
-    accepted now that the breaker is ported: the replay behind it gives
-    the state a replay without it gives."""
-    d = str(tmp_path)
+def test_sharded_kind_and_overload_recover(tmp_path):
+    """An overload config arms the replay's breaker: the replay behind it
+    gives the state a replay without it gives.  A sharded directory
+    records its kind and shard count and recovers to a
+    ``ShardedPIIndex`` (``test_torch_sharded.py`` runs its streams)."""
+    from repro_torch.core import distributed as tdist
+    d = str(tmp_path / "single")
     tp.Durability(d, seeded()[0]).close()
-    meta_path = os.path.join(d, "durability.json")
-    with open(meta_path) as f:
-        meta = json.load(f)
     behind, _ = tp.recover(d, overload=tp.OverloadConfig(), device="cpu")
     assert leaves_equal(behind, tp.recover(d, device="cpu")[0])
-    meta.update(kind="sharded", n_shards=2)
-    with open(meta_path, "w") as f:
-        json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tp.recover(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tp.Durability(str(tmp_path / "other"), object())
+    _, (keys0, vals0) = seeded()
+    state = tdist.build_sharded(seeded()[0].config, 2, keys0, vals0,
+                                device="cpu")
+    d = str(tmp_path / "sharded")
+    tp.Durability(d, state).close()
+    with open(os.path.join(d, "durability.json")) as f:
+        meta = json.load(f)
+    assert (meta["kind"], meta["n_shards"]) == ("sharded", 2)
+    for mesh in (None, tdist.make_mesh((2,), ("data",), device="cpu")):
+        got, replayed = tp.recover(d, mesh=mesh, device="cpu")
+        assert isinstance(got, tdist.ShardedPIIndex) and replayed == []
+        assert leaves_equal(got.shards, state.shards)
+        assert torch.equal(got.fences, state.fences)

@@ -19,6 +19,7 @@ from repro import data as jdata
 from repro.core import index as jpi
 from repro import pipeline as jpipe
 from repro_torch import data as tdata
+from repro_torch.core import distributed as tdist
 from repro_torch.core import index as tpi
 from repro_torch.core import engine as tengine
 from repro_torch.core.batch import INSERT, RANGE, SEARCH
@@ -237,15 +238,23 @@ def test_submit_leaves_the_pre_window_index_bit_identical():
 
 
 def test_dispatcher_refuses_unported_tiers():
-    """The sharded path is refused (ROADMAP A9); the overload breaker is
-    ported and its config accepted."""
+    """The one tier still refused is a mesh over more than one device
+    (ROADMAP A9, multi-GPU).  A sharded index without its mesh is a
+    ``ValueError``, as in JAX; with one it is served, and the overload
+    breaker's config is accepted."""
     idx = tpi.build(tpi.PIConfig(capacity=64, pending_capacity=8),
                     np.arange(4, dtype=np.int32),
                     np.arange(4, dtype=np.int32), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.Dispatcher(idx, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.Dispatcher(object())
+        tpipe.Dispatcher(idx, mesh=tdist.make_mesh(
+            (2,), ("data",), device=["cpu", "meta"]))
+    state = tdist.build_sharded(idx.config, 2, np.arange(4, dtype=np.int32),
+                                np.arange(4, dtype=np.int32), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        tpipe.Dispatcher(state)
+    disp = tpipe.Dispatcher(state, mesh=tdist.make_mesh((2,), ("data",),
+                                                        device="cpu"))
+    assert disp.breaker_state == tpipe.BREAKER_CLOSED
     disp = tpipe.Dispatcher(idx, overload=tpipe.OverloadConfig())
     assert disp.breaker_state == tpipe.BREAKER_CLOSED
 
