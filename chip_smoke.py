@@ -110,16 +110,38 @@ fence-routed shards, windows of 8192 operations.  Phases:
    and 16 new tokens each until drained, with ``session_range`` checked
    midway against the host's view; ``recover`` of its directory equals
    its table bit for bit;
-11. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+11. ``[train]``, with the weights of 9 and 10 freed: (a)
+   ``FlashAttention`` at phi3's heads (2, 512, 32, 32, 96) in bfloat16
+   and float32, its forward within ``CARD_TOL`` of the plain version and
+   its dq, dk, dv equal bit for bit to autograd through the plain version
+   at the model's chunk of 1024, and one layer's attention forward and
+   backward timed at (4, 2048, 32, 32, 96); (b) phi3-mini-3.8b at full
+   width and depth, float32 parameters from ``init_params`` on a CUDA
+   generator seeded with ``SEED``, bfloat16 compute, ``remat`` on, AdamW
+   with bfloat16 moments: ``TRAIN_STEPS`` steps of ``make_train_step`` on
+   ``lm_batch`` of 4 x 2048 tokens, every loss and gradient norm finite,
+   the last loss below the first, the flash kernel launched twice a
+   layer a step (the forward and its rematerialization); step time p50,
+   tokens/s, peak memory and, with ``--profile``, one step's device time
+   by phase and kernel class; (c) one AdamW step of phi3's widths at 2
+   layers in float32 on the card and on the CPU, from the same weights
+   and batch of 1 x 256 tokens: loss, every gradient leaf and every
+   updated parameter within ``CARD_CPU_TOL``; (d)
+   ``launch/train.py::train`` at 2 layers with bfloat16 moments under
+   ``build/train_ckpt`` (removed at the end): a slow step flagged by the
+   watchdog, a failure injected after a checkpoint, the resumed run's
+   loss against an uninterrupted run's;
+12. check that each path launched its kernels: ``pi_probe``, ``pi_search``
    and ``bitonic_sort`` on the point path, ``pi_probe`` and
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
    window on the serving, the durable, the overload and the LM serving
    path, each of them S = 8 times a window (``pi_range`` S times a
    range-bearing window) on the sharded path, ``flash_attention_fwd``
-   once a layer of every prefill and forward.
+   once a layer of every prefill and forward and twice a layer of every
+   train step.
 
 ``--profile N`` adds device time by kernel over N point windows, N
-serving windows and N sharded windows.  The line before the last is a JSON object with one
+serving windows and N sharded windows, and one train step's by phase.  The line before the last is a JSON object with one
 entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result;
 so does a machine without a CUDA card, or a directory without the rest of
@@ -179,6 +201,33 @@ DECODE_STEPS = 64                # greedy steps from the prefill's cache
 CHECK_B, CHECK_S = 2, 256        # the float32 prefill-vs-decode check
 SERVE_REQUESTS = 16              # [serve:lm] requests, 16-48 prompt tokens
 SERVE_DIR = os.path.join(ROOT, "build", "serve_wal")
+LM_LAYERS = 32
+# [train]: phi3-mini's heads for the gradient check, the full-width steps
+FLASH_GRAD_SHAPE = (2, 512, 32, 32, 96)
+TRAIN_B, TRAIN_S = 4, 2048       # a step's tokens (4 x 2048)
+TRAIN_STEPS = 4
+CHECK_LAYERS = 2                 # (c) card vs CPU and (d) the train loop
+CHECK_TRAIN_S = 256              # (c): 1 x 256 tokens
+DRIVER_B, DRIVER_S = 2, 512      # (d)
+TRAIN_FAIL_AT = 5                # (d): checkpoint at 4, failure at 5
+TRAIN_DIR = os.path.join(ROOT, "build", "train_ckpt")
+# (c)'s bars: relative loss, gradient error over its leaf's largest
+# |value|, updated parameters in units of the learning rate
+# (measured on the card: 0, 1.17e-6, 0.0497 lr); a parameter may
+# also round to the next float32 either side (at lr 1.5e-7 one ulp of the
+# largest weights is 0.05 lr), so its bar adds one ulp
+CARD_CPU_TOL = {"loss": 1e-6, "grad": 1e-5, "param": 0.1}
+# (d): the resumed loss against the clean run's, relative; the embedding's
+# backward adds with atomics, so the two runs' weights differ in the last
+# bits (measured: 7.7e-5)
+DRIVER_TOL = 1e-3
+# the optimizer of (b)-(d): the JAX package's AdamW (lr 3e-4) with
+# bfloat16 moments, its choice for models whose float32 moments do not
+# fit, warmed up over 2000 steps: 1.5e-7 at step 1.  Adam's first steps
+# move every weight by ~lr, which moves phi3's loss by ~lr times the L1
+# norm of its gradient: from lr 1e-4 at step 1, or after the default 100
+# warmup steps, the loss rose back above 10 within 4 steps.
+TRAIN_OPT_ARGS = dict(moment_dtype="bfloat16", warmup_steps=2000)
 # [kernels:flash]: (name, (B, S, H, KV, D), dtype, options); "phi3" is
 # phi3's prefill, the one timed with the bfloat16 kernel, "float32" the
 # case timed with the float32 kernel, and the float32 cases after it hold
@@ -2211,6 +2260,339 @@ def run_serve_lm(cfg, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [train]: the flash kernel under autograd, phi3-mini train steps
+# ---------------------------------------------------------------------------
+
+def train_opt(**changes):
+    from repro_torch.optim import OptConfig
+    return OptConfig(**dict(TRAIN_OPT_ARGS, **changes))
+
+
+def check_flash_grad(iters):
+    """``[train]`` (a): ``FlashAttention`` at phi3's heads in bfloat16 and
+    float32: the forward within ``CARD_TOL`` of the plain version, the
+    gradient bit for bit autograd through the plain version at the
+    model's chunk of 1024; then one layer's attention forward and
+    backward timed at the train step's shape."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    B, S, H, KV, D = FLASH_GRAD_SHAPE
+    for dt in (_BF, _F32):
+        q, k, v = _flash_inputs(g, B, S, H, KV, D, dt)
+        go = torch.randn(q.shape, generator=g, device=DEVICE).to(dt)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = FA.FlashAttention.apply(*leaves, True, None, None)
+        got = torch.autograd.grad(out, leaves, go)
+        e, share = FA.card_error(out.detach(),
+                                 FA.flash_attention_fwd_plain(q, k, v))
+        assert np.isfinite(e) and share <= 1.0, (dt, e, share)
+        ref = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(FA.flash_attention_fwd_plain(
+            *ref, kv_chunk=1024), ref, go)
+        for name, a, b in zip("qkv", got, want):
+            assert a.dtype == dt and torch.equal(a, b), (dt, name)
+        log(f"[train] FlashAttention {FLASH_GRAD_SHAPE} {dt}: forward "
+            f"max_abs_err {e:.6g} ({share:.4g} of CARD_TOL); dq, dk, dv "
+            f"equal autograd through the plain version bit for bit")
+        del q, k, v, go, leaves, out, got, ref, want
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v = (x.requires_grad_() for x in _flash_inputs(g, B, S, H, KV, D,
+                                                         _BF))
+    go = torch.randn(q.shape, generator=g, device=DEVICE).to(_BF)
+    dev, _ = device_events(lambda: torch.autograd.grad(
+        FA.FlashAttention.apply(q, k, v, True, None, None), (q, k, v), go),
+        iters, operators=False)
+    total = sum(t for _, t, _ in dev) / iters / 1e3
+    fwd = sum(t for name, t, _ in dev
+              if "flash_fwd_kernel" in name) / iters / 1e3
+    log(f"[train] one layer's attention at ({B}, {S}, {H}, {KV}, {D}) "
+        f"bfloat16: forward kernel {fwd:.6f} ms, backward (the plain "
+        f"recompute in float64 scores and autograd) {total - fwd:.6f} ms "
+        f"of device time")
+    for name, t, count in sorted(dev, key=lambda r: -r[1])[:6]:
+        log(f"[train]   {t / iters / 1e3:10.6f} ms ({count / iters:.0f}x) "
+            f"{name[:90]}")
+    return dict(fwd_ms=fwd, bwd_ms=total - fwd)
+
+
+def step_split(cfg, opt_cfg, params, opt_state, batch):
+    """Device time of one train step by phase (``make_train_step``'s body
+    taken apart: the forward, the backward, the optimizer) and by kernel
+    class, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.models import loss_fn
+    from repro_torch.models.base import tree_leaves, tree_map
+    live = tree_map(lambda a: a.detach().requires_grad_(), params)
+    out = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = fn()
+            torch.cuda.synchronize()
+        out[name] = [(e.key, e.self_device_time_total / 1e3)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+        return res
+
+    with torch.enable_grad():
+        loss, _ = run("forward", lambda: loss_fn(cfg, live, batch))
+        grads = run("backward", lambda: torch.autograd.grad(
+            loss, tree_leaves(live)))
+    it = iter(grads)
+    grads = tree_map(lambda _: next(it), live)
+    del live, loss
+    run("optimizer", lambda: optim.update(opt_cfg, grads, opt_state, params))
+    return out
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash"
+    if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def train_full_width(profile):
+    """``[train]`` (b): phi3-mini-3.8b at full width and depth, AdamW with
+    bfloat16 moments, ``TRAIN_STEPS`` steps on ``TRAIN_B`` x ``TRAIN_S``
+    tokens of ``lm_batch``.  Returns the flash launches and the numbers."""
+    from repro_torch import data
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_train_state, make_train_step
+    from repro_torch.models.base import tree_leaves
+    cfg = get_config(LM_ARCH)
+    assert cfg.remat and cfg.compute_dtype == "bfloat16"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    opt = train_opt()
+    params, opt_state = init_train_state(cfg, opt, gen)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    assert n_params == LM_PARAMS, n_params
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[train] {LM_ARCH}: {n_params} float32 parameters and AdamW "
+        f"moments in {opt.moment_dtype} made in "
+        f"{time.perf_counter() - t0:.3f} s: {state_gib:.3f} GiB on the "
+        f"card; {opt}")
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=SEED)
+    batches = [data.lm_batch(dcfg, i, device=DEVICE)
+               for i in range(TRAIN_STEPS + 1)]
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, norms, times = [], [], []
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = np.array(times) * 1e3
+    p50 = float(np.percentile(times, 50))
+    tokens = TRAIN_B * TRAIN_S
+    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens: "
+        f"losses {losses}, grad norms {norms}; step times {times.tolist()} "
+        f"ms, p50 {p50:.6f} ms ({tokens / p50 * 1e3:.1f} tokens/s); peak "
+        f"device memory {peak / 2 ** 30:.3f} GiB; flash kernel launches "
+        f"{launches['flash_attention_fwd']}")
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+    assert losses[-1] < losses[0], losses
+    assert launches["flash_attention_fwd"] == \
+        2 * cfg.n_layers * TRAIN_STEPS, launches
+    split = None
+    if profile:
+        split = step_split(cfg, opt, params, opt_state,
+                           batches[TRAIN_STEPS])
+        total = sum(t for rows in split.values() for _, t in rows)
+        parts = []
+        for phase, rows in split.items():
+            ms = sum(t for _, t in rows)
+            cls = {}
+            for name, t in rows:
+                cls[kernel_class(name)] = cls.get(kernel_class(name), 0) + t
+            parts.append(f"{phase} {ms:.6f} ms ({100 * ms / total:.2f}%: " +
+                         ", ".join(f"{k} {v:.6f}" for k, v in
+                                   sorted(cls.items())) + ")")
+        log(f"[profile:train] one step's device time {total:.6f} ms, "
+            f"{100 * total / p50:.2f}% of the unprofiled p50 step: " +
+            "; ".join(parts))
+        for phase, rows in split.items():
+            for name, t in sorted(rows, key=lambda r: -r[1])[:5]:
+                log(f"[profile:train] {phase:9s} {t:10.6f} ms {name[:90]}")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+    return launches, dict(p50=p50, tokens_s=tokens / p50 * 1e3, peak=peak,
+                          losses=losses, split=split)
+
+
+def tree_max_err(got, want, path=""):
+    """(the largest |got - want| of a leaf over that leaf's largest |want|,
+    the leaf's path) over two trees of one structure."""
+    if isinstance(want, dict):
+        return max(tree_max_err(got[k], want[k], f"{path}/{k}")
+                   for k in sorted(want))
+    a, b = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((a - b).abs().max().item() /
+            max(b.abs().max().item(), 1e-30), path)
+
+
+def train_card_vs_cpu():
+    """``[train]`` (c): one AdamW step of phi3's widths at ``CHECK_LAYERS``
+    layers in float32 on the card (the float32 kernel in the forward) and
+    on the CPU (the plain attention), from the same weights and batch."""
+    import dataclasses
+    from repro_torch import data, optim
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_and_grad, model_layout
+    from repro_torch.models.base import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=CHECK_LAYERS,
+                              compute_dtype="float32")
+    opt = train_opt(moment_dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    card = init_params(model_layout(cfg), gen, cfg.param_dtype)
+    host = tree_map(lambda a: a.to("cpu", copy=True), card)
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=CHECK_TRAIN_S,
+                           global_batch=1, seed=SEED + 5)
+    batch = data.lm_batch(dcfg, 0, device=DEVICE)
+    out = {}
+    for where, params in (("card", card), ("cpu", host)):
+        t0 = time.perf_counter()
+        b = {k: v.to(params["final_norm"].device) for k, v in batch.items()}
+        (loss, _), grads = loss_and_grad(cfg, params, b)
+        # a copy before the update clips the gradients in place
+        grads_cpu = tree_map(lambda a: a.to("cpu", copy=True), grads)
+        params, _, gn = optim.update(opt, grads, optim.init(opt, params),
+                                     params)
+        out[where] = (loss.item(), grads_cpu, tree_map(lambda a: a.cpu(),
+                                                       params), gn.item())
+        log(f"[train] card vs cpu: the {where} step took "
+            f"{time.perf_counter() - t0:.3f} s")
+    (l_c, g_c, p_c, n_c), (l_h, g_h, p_h, n_h) = out["card"], out["cpu"]
+    loss_err = abs(l_c - l_h) / abs(l_h)
+    grad_err, grad_leaf = tree_max_err(g_c, g_h)
+    lr = optim.schedule(opt, torch.tensor(1)).item()     # step 1's rate
+    moved = param_share = 0.0
+    for a, b in zip(tree_leaves(p_c), tree_leaves(p_h)):
+        d = (a - b).abs()
+        moved = max(moved, d.max().item())
+        bar = CARD_CPU_TOL["param"] * lr + 2.0 ** -22 * b.abs()
+        param_share = max(param_share, (d / bar).max().item())
+    log(f"[train] card vs cpu, {CHECK_LAYERS} layers of {LM_ARCH} in "
+        f"float32, 1 x {CHECK_TRAIN_S} tokens, one AdamW step: loss "
+        f"{l_c:.9g} vs {l_h:.9g} (relative {loss_err:.3g}, bar "
+        f"{CARD_CPU_TOL['loss']:g}); grad norm {n_c:.9g} vs {n_h:.9g}; "
+        f"gradients: largest error {grad_err:.3g} of its leaf's largest "
+        f"|value| (leaf {grad_leaf}; bar {CARD_CPU_TOL['grad']:g}); updated "
+        f"parameters: largest difference {moved:.3g} = {moved / lr:.3g} "
+        f"x lr = {lr:.3g} (bar {CARD_CPU_TOL['param']:g} x lr + one float32 "
+        f"ulp of the parameter; the largest share of it {param_share:.3g})")
+    assert loss_err <= CARD_CPU_TOL["loss"], loss_err
+    assert abs(n_c - n_h) / n_h <= CARD_CPU_TOL["grad"], (n_c, n_h)
+    assert grad_err <= CARD_CPU_TOL["grad"], (grad_err, grad_leaf)
+    assert param_share <= 1.0, (moved, param_share)
+    del card, host, out
+    torch.cuda.empty_cache()
+    return dict(loss_err=loss_err, grad_err=grad_err, param_lr=moved / lr)
+
+
+def train_driver():
+    """``[train]`` (d): ``launch/train.py::train`` at phi3's widths and
+    ``CHECK_LAYERS`` layers, bfloat16 compute and moments: an
+    uninterrupted run with a slow step, a run failing at
+    ``TRAIN_FAIL_AT`` after its checkpoint, and its resumption."""
+    import dataclasses
+    from repro_torch import data
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=CHECK_LAYERS)
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=DRIVER_S,
+                           global_batch=DRIVER_B, seed=SEED)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    loop = T.TrainLoopConfig(steps=TRAIN_FAIL_AT + 1,
+                             ckpt_every=TRAIN_FAIL_AT - 1, sync_ckpt=True,
+                             seed=SEED, straggler_factor=3.0)
+    slow = TRAIN_FAIL_AT
+
+    def pre_step(step):
+        if step == slow:
+            time.sleep(1.0)            # a straggler
+    t0 = time.perf_counter()
+    opt = train_opt()
+    clean = T.train(cfg, opt, dataclasses.replace(
+        loop, ckpt_dir=os.path.join(TRAIN_DIR, "clean"),
+        ckpt_every=10 ** 9), dcfg, hooks={"pre_step": pre_step},
+        device=DEVICE)
+    t_clean = time.perf_counter() - t0
+    assert slow in clean.straggler_steps, clean.straggler_steps
+    failed = os.path.join(TRAIN_DIR, "failed")
+    t0 = time.perf_counter()
+    try:
+        T.train(cfg, opt, dataclasses.replace(
+            loop, ckpt_dir=failed, fail_at_step=TRAIN_FAIL_AT), dcfg,
+            device=DEVICE)
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        assert "injected failure" in str(e), e
+    t_failed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = T.train(cfg, opt, dataclasses.replace(loop, ckpt_dir=failed),
+                  dcfg, device=DEVICE)
+    t_resume = time.perf_counter() - t0
+    assert res.restored_from == TRAIN_FAIL_AT - 1, res.restored_from
+    assert res.final_step == TRAIN_FAIL_AT and len(res.losses) == 1
+    err = abs(res.losses[0] - clean.losses[-1]) / abs(clean.losses[-1])
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(os.path.join(
+                   failed, f"step_{TRAIN_FAIL_AT}")) for f in fs)
+    log(f"[train] driver, {CHECK_LAYERS} layers, {DRIVER_B} x {DRIVER_S} "
+        f"tokens, bfloat16 moments: clean run {clean.losses} in "
+        f"{t_clean:.3f} s (stragglers {clean.straggler_steps}); failure "
+        f"injected at step {TRAIN_FAIL_AT} after the step "
+        f"{TRAIN_FAIL_AT - 1} checkpoint ({t_failed:.3f} s); resumed from "
+        f"step {res.restored_from}: loss {res.losses[0]:.9g} against the "
+        f"clean run's {clean.losses[-1]:.9g} (relative {err:.3g}, bar "
+        f"{DRIVER_TOL:g}) in {t_resume:.3f} s; a checkpoint holds "
+        f"{size / 1e9:.3f} GB")
+    assert err <= DRIVER_TOL, err
+    shutil.rmtree(TRAIN_DIR)
+    return dict(resume_err=err)
+
+
+def run_train(profile, iters):
+    """``[train]``: (a) to (d) above.  Returns the launch counts of (b),
+    the full-width steps."""
+    t0 = time.perf_counter()
+    grad = check_flash_grad(iters)
+    log(f"[time] [train] (a) {time.perf_counter() - t0:.3f} s")
+    launches, full = train_full_width(profile)
+    log(f"[time] [train] (b) {time.perf_counter() - t0:.3f} s")
+    vs_cpu = train_card_vs_cpu()
+    log(f"[time] [train] (c) {time.perf_counter() - t0:.3f} s")
+    driver = train_driver()
+    log(f"[time] [train] (d) {time.perf_counter() - t0:.3f} s")
+    if full["split"] is not None:
+        step_ms = sum(t for rows in full["split"].values() for _, t in rows)
+        share = 100 * grad["bwd_ms"] * LM_LAYERS / step_ms
+        log(f"[profile:train] the attention backward, {grad['bwd_ms']:.6f} "
+            f"ms a layer x {LM_LAYERS} layers, is {share:.2f}% of a step's "
+            f"device time")
+    return launches, dict(grad=grad, full=full, vs_cpu=vs_cpu,
+                          driver=driver)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
@@ -2387,7 +2769,11 @@ def main(argv=None) -> int:
     del lm
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 11. launch counts ------------------------------------------------
+    # -- 11. training: the flash kernel under autograd, phi3-mini steps ----
+    train_launches, _ = run_train(args.profile, 3)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 12. launch counts ------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
@@ -2398,7 +2784,8 @@ def main(argv=None) -> int:
     assert sharded_launches["pi_range"] >= SHARDS, sharded_launches
     assert overload_launches["pi_probe"] >= 1, overload_launches
     paths = (launches, serve_launches, durable_launches, sharded_launches,
-             overload_launches, lm_launches, serve_lm_launches)
+             overload_launches, lm_launches, serve_lm_launches,
+             train_launches)
 
     def total(name):
         return sum(p[name] for p in paths)

@@ -18,6 +18,13 @@ snapshot written by either package restores in the other:
     ``shardings``, each leaf where that tree says: the elastic restore,
     onto another placement than the one saved.
 
+A bfloat16 leaf, which numpy lacks, is written as the JAX package writes
+it: its raw 2-byte words as a ``|V2`` array (``BF16_ON_DISK``).
+``restore`` takes such a leaf for a bfloat16 target and reads its bytes
+as bfloat16; every other dtype must match the target's exactly.  Here
+the port departs from the reference on purpose: the JAX ``restore``
+refuses its own bfloat16 files (``|V2 != bfloat16``).
+
 A tree is a ``PIIndex`` (its leaves in the JAX ``tree_flatten`` order,
 ``levels`` expanded: ``core.index.flat_leaves``), a dict (sorted keys, as
 ``jax.tree_util`` orders them), a list or tuple, or a leaf (a tensor or a
@@ -89,17 +96,32 @@ def _placements(tree, shardings) -> List[torch.device]:
     raise ValueError(f"shardings {shardings!r} do not match the tree")
 
 
+BF16_ON_DISK = np.dtype("V2")    # a bfloat16 leaf's words in host0.npz
+
+
 def _host_copy(leaf) -> np.ndarray:
     """A numpy copy of a leaf that no later write to the leaf can reach."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(BF16_ON_DISK)
+        return host.numpy()
     return np.array(leaf, copy=True)
 
 
 def _np_dtype(leaf) -> np.dtype:
+    """The dtype a leaf has on disk."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return BF16_ON_DISK
         return torch.empty((0,), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _from_disk(a: np.ndarray, want) -> torch.Tensor:
+    if isinstance(want, torch.Tensor) and want.dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class CheckpointManager:
@@ -214,8 +236,8 @@ class CheckpointManager:
         places = _placements(target_tree, shardings) \
             if shardings is not None else \
             [pi._device(device)] * len(loaded)
-        return rebuild([torch.from_numpy(a).to(d)
-                        for a, d in zip(loaded, places)])
+        return rebuild([_from_disk(a, want).to(d)
+                        for a, want, d in zip(loaded, leaves, places)])
 
     def restore_latest(self, target_tree: Any, shardings: Any = None, *,
                        device=None):

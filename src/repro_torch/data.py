@@ -1,14 +1,58 @@
-"""YCSB-style index workloads (paper §6), numpy only.
+"""Data: the stateless synthetic LM stream and YCSB-style index workloads.
 
-A copy of the YCSB half of ``repro.data``: the same seed gives the same
-keys, values and batches in both packages.  The LM stream waits for the
-port of the LM substrate.
+Counterpart of ``repro.data``.  Everything is a function of (seed, step,
+host), so a restarted or resumed run needs no pipeline state in its
+checkpoints.
+
+* ``lm_batch`` draws on a ``torch.Generator`` seeded from (seed, step,
+  host), on the target device: the JAX package's formulas (zipf-like
+  ranks ``u ** (-1/1.1)`` clipped to ``vocab - 1``, tokens and labels
+  shifted by one), other numbers than ``jax.random`` gives.
+* The YCSB half is numpy and a copy of the JAX package's: the same seed
+  gives the same keys, values and batches in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
+import torch
+
+from repro_torch.core.index import _device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int = 32_000
+    seq_len: int = 128
+    global_batch: int = 8
+    seed: int = 0
+    input_mode: str = "tokens"   # tokens | embeddings
+    d_model: int = 0             # for embeddings mode
+
+
+def lm_batch(cfg: DataConfig, step: int, host: int = 0, n_hosts: int = 1,
+             device=None) -> Dict[str, torch.Tensor]:
+    """Deterministic batch for (step, host) on ``device`` (default: the
+    card).  Zipf-ish token marginals so losses behave like text rather
+    than uniform noise; int32 tokens and labels."""
+    device = _device(device)
+    b = cfg.global_batch // n_hosts
+    seed = np.random.SeedSequence([cfg.seed, step, host]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    # zipf via exponentiated uniform: rank ~ u^(-1/s), s≈1.1
+    u = torch.rand((b, cfg.seq_len + 1), generator=gen, device=device)
+    u = 1e-6 + (1 - 1e-6) * u
+    ranks = torch.clamp((u ** (-1.0 / 1.1)).to(torch.int32), 0, cfg.vocab - 1)
+    tokens = ranks[:, :-1]
+    labels = ranks[:, 1:]
+    if cfg.input_mode == "embeddings":
+        emb = torch.randn((b, cfg.seq_len, cfg.d_model), generator=gen,
+                          device=device)
+        return {"embeds": emb, "labels": labels}
+    return {"tokens": tokens, "labels": labels}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +99,13 @@ def ycsb_batch(cfg: YCSBConfig, keys: np.ndarray, step: int):
     qkeys = np.where(new_key, fresh, qkeys).astype(np.int32)
     vals = rng.integers(0, 1 << 30, cfg.batch).astype(np.int32)
     return ops, qkeys, vals
+
+
+def range_batch(cfg: YCSBConfig, keys: np.ndarray, step: int,
+                granularity: int):
+    """Range-query batch: [lo, hi] spans covering ~granularity keys."""
+    rng = np.random.default_rng((cfg.seed, step, granularity))
+    span = cfg.key_space * granularity // len(keys)
+    lo = rng.integers(0, cfg.key_space - span, cfg.batch).astype(np.int32)
+    hi = (lo + span).astype(np.int32)
+    return lo, hi

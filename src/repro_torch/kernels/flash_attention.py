@@ -57,6 +57,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.pi_search import _raise_on
@@ -130,48 +131,101 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     broadcast to H (GQA).  ``q_offset`` is the absolute position of
     q[:, 0].  Never materializes more than one (B, H, Sq, kv_chunk) score
     block.  Returns (B, Sq, H, Dv) in q's dtype.
+
+    Where autograd records, each chunk's body runs under a non-reentrant
+    ``torch.utils.checkpoint``, as the JAX model function wraps its scan
+    step in ``jax.checkpoint``: the backward recomputes a chunk's scores
+    instead of holding every chunk's (4 x 2048 tokens of phi3-mini hold
+    ~8 GiB of them a layer).
     """
     B, Sq, H, Dk = q.shape
-    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    rep = H // KV
+    Dv = v.shape[-1]
     kv_chunk = kv_chunk or kv_tile(Dk, q.dtype)
     q = _scaled_q(q)
     qd = q.double()
-    qpos = q_offset + torch.arange(Sq, device=q.device)
     m = torch.full((B, H, Sq), _MASK, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=q.device)
-    for c0 in range(0, Sk, kv_chunk):
-        kb = k[:, c0:c0 + kv_chunk].repeat_interleave(rep, dim=2)
-        vb = v[:, c0:c0 + kv_chunk].repeat_interleave(rep, dim=2)
-        kpos = c0 + torch.arange(kv_chunk, device=q.device)
-        # float32 scores rounded once from float64 sums, in which products
-        # of bf16 or float32 values are exact (and, for bf16, their sums
-        # over D): the reference takes the exact scores, since two float32
-        # sums in different orders that round a probability to v's dtype
-        # on two sides move a short row's output past CARD_TOL
-        s = torch.einsum("bqhd,bkhd->bhqk", qd, kb.double()).float()
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        mask = (kpos[None, :] <= qpos[:, None]) if causal else \
-            torch.ones((Sq, kv_chunk), dtype=torch.bool, device=q.device)
-        if window is not None:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        mask = mask & (kpos[None, :] < Sk)             # the ragged tail
-        if s.shape[-1] < kv_chunk:                     # zero-padded keys
-            s = torch.nn.functional.pad(s, (0, kv_chunk - s.shape[-1]))
-            vb = torch.nn.functional.pad(
-                vb, (0, 0, 0, 0, 0, kv_chunk - vb.shape[1]))
-        s = s + torch.where(mask, 0.0, _MASK)[None, None]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vb.float())
-        m = m_new
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset, kv_chunk=kv_chunk)
+    for c0 in range(0, k.shape[1], kv_chunk):
+        if remat:
+            m, l, acc = checkpoint(_chunk_step, m, l, acc, qd, k, v, c0,
+                                   use_reentrant=False, **opts)
+        else:
+            m, l, acc = _chunk_step(m, l, acc, qd, k, v, c0, **opts)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _chunk_step(m, l, acc, qd, k, v, c0: int, *, causal, window, softcap,
+                q_offset, kv_chunk):
+    """One key chunk of the online softmax: (m, l, acc) after keys
+    [c0, c0 + kv_chunk) of k and v."""
+    Sq, H = qd.shape[1], qd.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    kb = k[:, c0:c0 + kv_chunk].repeat_interleave(rep, dim=2)
+    vb = v[:, c0:c0 + kv_chunk].repeat_interleave(rep, dim=2)
+    qpos = q_offset + torch.arange(Sq, device=qd.device)
+    kpos = c0 + torch.arange(kv_chunk, device=qd.device)
+    # float32 scores rounded once from float64 sums, in which products
+    # of bf16 or float32 values are exact (and, for bf16, their sums
+    # over D): the reference takes the exact scores, since two float32
+    # sums in different orders that round a probability to v's dtype
+    # on two sides move a short row's output past CARD_TOL
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kb.double()).float()
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = (kpos[None, :] <= qpos[:, None]) if causal else \
+        torch.ones((Sq, kv_chunk), dtype=torch.bool, device=qd.device)
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    mask = mask & (kpos[None, :] < Sk)             # the ragged tail
+    if s.shape[-1] < kv_chunk:                     # zero-padded keys
+        s = torch.nn.functional.pad(s, (0, kv_chunk - s.shape[-1]))
+        vb = torch.nn.functional.pad(
+            vb, (0, 0, 0, 0, 0, kv_chunk - vb.shape[1]))
+    s = s + torch.where(mask, 0.0, _MASK)[None, None]
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vb.float())
+    return m_new, l, acc
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is ``flash_attention_fwd``
+    (the CUDA kernel on the card, its plain version on the CPU); the
+    backward recomputes the attention from the saved q, k and v through
+    the model's own chunked function, ``flash_attention_fwd_plain`` at
+    ``kv_chunk = 1024``, each chunk checkpointed, and differentiates that
+    with autograd.  The JAX package likewise differentiates its pure-JAX
+    ``flash_attention``; it has no Pallas backward, so neither has the
+    port a backward kernel.
+
+    ``FlashAttention.apply(q, k, v, causal, window, softcap)``; under
+    ``torch.no_grad()`` it is ``flash_attention_fwd`` alone.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, softcap=None):
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_fwd(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_fwd_plain(q, k, v, kv_chunk=1024,
+                                            **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None, None
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

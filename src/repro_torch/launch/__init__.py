@@ -1,2 +1,3 @@
 """Entry points of the port: ``serve`` (LM continuous batching over the
-PI session table).  Training and the dry-run wait (ROADMAP A10, A12)."""
+PI session table) and ``train`` (the fault-tolerant training loop).  The
+dry-run waits (ROADMAP A12)."""

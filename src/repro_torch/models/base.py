@@ -12,7 +12,8 @@ weights across the packages leaf for leaf.
 device: the same layout, init kinds and scales as the JAX package, other
 numbers than ``jax.random`` gives (the parity tests carry the JAX
 package's weights instead).  Sharding has no place on one card, so the
-logical axes are kept for parity only and ``spec_tree`` is left out.
+logical axes (``spec_tree``) are kept for parity only: nothing maps them
+onto devices.
 """
 from __future__ import annotations
 
@@ -174,6 +175,11 @@ class ParamDef:
 Layout = Dict[str, ParamDef]
 
 
+def spec_tree(layout: Layout) -> Dict:
+    """The tree of each parameter's logical axes (tuples of names)."""
+    return _unflatten({k: v.logical for k, v in layout.items()})
+
+
 def abstract_params(layout: Layout, dtype) -> Dict:
     """The parameter tree on the ``meta`` device: shapes and dtypes, no
     storage (the counterpart of the JAX ``ShapeDtypeStruct`` tree)."""
@@ -249,13 +255,22 @@ def tree_bytes(tree) -> int:
                for leaf in tree_leaves(tree))
 
 
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """A host tensor holding numpy array ``a``.  A bfloat16 array (the JAX
+    package's, an ``ml_dtypes`` dtype) or its raw 2-byte words (``|V2``,
+    as a checkpoint holds them) becomes a bfloat16 tensor."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_numpy(tree, device=None) -> Dict:
     """A tree of numpy arrays (the JAX package's parameters, converted
-    with ``np.asarray``) as the port's tensors, leaf for leaf, on
-    ``device`` (default: the card)."""
+    with ``np.asarray``, bfloat16 ones included) as the port's tensors,
+    leaf for leaf, on ``device`` (default: the card)."""
     device = _device(device)
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+    return tree_map(lambda a: _tensor_from_numpy(a).to(device), tree)
 
 
 def params_to_numpy(tree) -> Dict:

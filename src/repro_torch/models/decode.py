@@ -22,7 +22,7 @@ from repro_torch.core.index import _device
 from repro_torch.models.base import ModelConfig, cast_floats, torch_dtype
 from repro_torch.models.transformer import (_check_dense, add_positions,
                                             dense_block_apply, embed_tokens,
-                                            layer_params, norm, unembed)
+                                            norm, unbind_layers, unembed)
 
 
 def _attn_cache(cfg: ModelConfig, layers: int, B: int, T: int, dtype,
@@ -68,11 +68,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
     positions = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
     x = add_positions(cfg, x, positions)
     slot = idx % cache["k"].shape[2]
-    for i in range(cfg.n_layers):
+    for i, p_l in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
         c_l = {"k": cache["k"][i], "v": cache["v"][i],
                "pos": cache["pos"][i], "slot": slot}
-        x, _ = dense_block_apply(cfg, layer_params(params["blocks"], i), x,
-                                 positions, cache=c_l)
+        x, _ = dense_block_apply(cfg, p_l, x, positions, cache=c_l)
     x = norm(cfg, x, params["final_norm"])
     return unembed(cfg, params, x), cache
 
@@ -118,9 +117,8 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = add_positions(cfg, x, positions)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = dense_block_apply(cfg, layer_params(params["blocks"], i),
-                                      x, positions)
+    for p_l in unbind_layers(params["blocks"], cfg.n_layers):
+        x, (k, v) = dense_block_apply(cfg, p_l, x, positions)
         ks.append(k)
         vs.append(v)
     ck, pos = _fill_ring(torch.stack(ks), T)

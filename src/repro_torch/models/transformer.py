@@ -5,15 +5,24 @@ Counterpart of ``repro.models.transformer``.  Every tensor program is a
 function of (cfg, params, inputs), params being the nested dict of the
 JAX package's keys with layers stacked on the leading dim of every
 ``blocks`` leaf; ``DenseLM`` wraps such a tree as an ``nn.Module``.  A
-layer is a slice of the stacks, and the layer loop (``_scan_blocks``) is
+layer is a view of the stacks, and the layer loop (``_scan_blocks``) is
 a Python loop where the JAX package scans.
 
-The full-sequence attention of ``attn_apply`` (the prefill and
-``forward`` path) is ``kernels.flash_attention.flash_attention_fwd``: the
-CUDA kernel on the card, once per layer, where the JAX package calls the
-pure-JAX ``flash_attention``; on the CPU that wrapper runs the plain
-chunked version, which ``flash_attention`` below also is.  Decode
+The full-sequence attention of ``attn_apply`` (the prefill, ``forward``
+and training path) is ``kernels.flash_attention.FlashAttention``: its
+forward is ``flash_attention_fwd``, the CUDA kernel on the card, once per
+layer, where the JAX package calls the pure-JAX ``flash_attention``; on
+the CPU that wrapper runs the plain chunked version, which
+``flash_attention`` below also is.  Its backward differentiates that
+plain version, as the JAX package differentiates its own.  Decode
 attends over the cache with plain einsums, as the JAX package does.
+
+Training (``loss_fn``) takes the parameter tree directly: ``steps.py``
+detaches its leaves into tensors that require gradients.  With
+``cfg.remat`` each layer runs under a non-reentrant
+``torch.utils.checkpoint`` while autograd records (JAX's
+``nothing_saveable`` policy: a layer saves only its input, and its
+backward recomputes it, the attention kernel included).
 
 Rounding follows the JAX package: norms compute in float32 and cast back;
 a Python scalar that JAX would weakly type to the array's dtype is
@@ -31,7 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_fwd_plain,
                                                  weak_scalar)
 from repro_torch.models.base import (Layout, ModelConfig, ParamDef,
@@ -139,8 +150,8 @@ def attn_layout(cfg: ModelConfig, prefix: str, layers: int) -> Layout:
 
 def attn_apply(cfg: ModelConfig, p: Dict, x, positions, *,
                cache=None, window=None):
-    """x: (B,S,d).  cache: None (prefill from scratch: the flash kernel on
-    the card) or a dict with k/v (B,T,KV,hd), pos (T,) and slot (decode:
+    """x: (B,S,d).  cache: None (training and prefill from scratch: the
+    flash kernel on the card, with a gradient) or a dict with k/v (B,T,KV,hd), pos (T,) and slot (decode:
     S == 1 written at ``slot``).
 
     The decode branch writes the new key, value and position into the
@@ -160,8 +171,7 @@ def attn_apply(cfg: ModelConfig, p: Dict, x, positions, *,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o = flash_attention_fwd(q, k, v, causal=True, window=window,
-                                softcap=cfg.logit_softcap)
+        o = FlashAttention.apply(q, k, v, True, window, cfg.logit_softcap)
         new_cache = (k, v)
     else:
         ck, cv, cpos, slot = cache["k"], cache["v"], cache["pos"], \
@@ -296,16 +306,27 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def layer_params(block_params, i: int):
-    """Layer ``i`` of the stacked block parameters (views, no copy)."""
-    return tree_map(lambda a: a[i], block_params)
+def unbind_layers(block_params, n_layers: int):
+    """Every layer's parameters at once (views, no copy), by
+    ``torch.unbind`` of each stack.  Their gradients are stacked once by
+    ``unbind``'s backward, where a slice a layer would scatter each
+    layer's into a zero tensor of the whole stack."""
+    stacks = tree_map(lambda a: a.unbind(0), block_params)
+    return [tree_map(lambda t: t[i], stacks) for i in range(n_layers)]
 
 
 def _scan_blocks(cfg: ModelConfig, block_params, x, positions, apply_fn):
-    """The layers in order, each a slice of the stacks (the JAX package's
-    ``lax.scan``; nothing is rematerialized, there is no backward here)."""
-    for i in range(cfg.n_layers):
-        x, _ = apply_fn(cfg, layer_params(block_params, i), x, positions)
+    """The layers in order (the JAX package's ``lax.scan``); with
+    ``cfg.remat``, while autograd records, each under a non-reentrant
+    checkpoint that saves only its input."""
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def layer(p_l, h):
+        return apply_fn(cfg, p_l, h, positions)[0]
+
+    for p_l in unbind_layers(block_params, cfg.n_layers):
+        x = checkpoint(layer, p_l, x, use_reentrant=False) if remat \
+            else layer(p_l, x)
     return x
 
 
@@ -331,12 +352,33 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None):
     return unembed(cfg, params, x), {}
 
 
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Causal LM loss of the dense family → (loss, metrics): the mean
+    over ``batch["mask"]`` (all ones when absent) of logsumexp − the gold
+    logit, in float32; ``metrics`` holds ``nll`` and ``loss`` (equal: the
+    dense family adds no auxiliary loss)."""
+    logits, _ = forward(cfg, params, tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"))
+    labels = batch["labels"]
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss, {"nll": loss, "loss": loss}
+
+
 class DenseLM(nn.Module):
     """A dense model's parameters as an ``nn.Module``: one ``Parameter``
     per leaf of the JAX tree (``blocks/attn/wq`` → (L, d, H·hd), …),
     registered under the path with ``/`` as ``__``.  ``tree()`` gives the
     nested dict the functions above take; ``forward`` is the module's
-    full-sequence forward."""
+    full-sequence forward, without gradients.  Training does not go
+    through the module: ``models.steps`` takes the parameter tree itself
+    (``init_train_state``, ``make_train_step``)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict):
         super().__init__()

@@ -6,7 +6,9 @@
   byte, and the port reads a PIW1 segment.
 * Checkpoint (``repro_torch.checkpoint``): the cases of
   ``tests/test_checkpoint.py`` with a port ``PIIndex`` (and a dict) as the
-  tree; a snapshot holds the JAX leaf order, ``levels`` expanded.
+  tree; a snapshot holds the JAX leaf order, ``levels`` expanded; a tree
+  with bfloat16, float32 and int32 leaves round-trips bit for bit, and a
+  bfloat16 file interchanges with the JAX package's (raw ``|V2`` words).
 * Recovery (``repro_torch.pipeline.recovery``): the single-kind cases of
   ``tests/test_durability.py`` — the crash matrix over the five fault
   points, crash after a snapshot, the crash-free round trip, resume,
@@ -481,6 +483,70 @@ def test_ckpt_restores_a_jax_snapshot(tmp_path):
         2, tpi.leaf_spec(tcfg), device="cpu")
     assert_same_state(jidx, got, "JAX snapshot read by the port")
     assert tpi.validate_layout(got)
+
+
+def mixed_dtype_tree(seed=0):
+    """bfloat16, float32 and int32 leaves, bfloat16 words of every kind
+    (normal, subnormal, +-inf, NaN, -0)."""
+    rng = np.random.default_rng(seed)
+    words = np.concatenate([rng.integers(-2 ** 15, 2 ** 15, 60),
+                            [0x0001, 0x7F80, -0x0080, 0x7FC1, -0x8000]])
+    bf16 = torch.from_numpy(words.astype(np.int16)).view(torch.bfloat16)
+    return {"m": bf16.reshape(5, 13),
+            "p": torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32)),
+            "count": torch.tensor(7, dtype=torch.int32)}
+
+
+def test_ckpt_roundtrip_bfloat16_float32_int32(tmp_path):
+    """A tree with bfloat16 leaves saves and restores bit for bit; the
+    bfloat16 leaf lands on disk as its raw words (``|V2``), as the JAX
+    package writes it."""
+    t = mixed_dtype_tree()
+    m = tckpt.CheckpointManager(str(tmp_path))
+    m.save(1, t, blocking=True)
+    target = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in t.items()}
+    got = m.restore(1, target, device="cpu")
+    for k in t:
+        assert got[k].dtype == t[k].dtype
+        assert torch.equal(got[k].view(torch.int16) if k == "m" else got[k],
+                           t[k].view(torch.int16) if k == "m" else t[k]), k
+    with np.load(os.path.join(str(tmp_path), "step_1", "host0.npz")) as z:
+        leaf = z["leaf_1"]                       # sorted: count, m, p
+        assert leaf.dtype == np.dtype("V2")
+        assert leaf.tobytes() == t["m"].view(torch.int16).numpy().tobytes()
+    with pytest.raises(ValueError, match="dtype"):
+        m.restore(1, dict(target, m=torch.empty((5, 13), device="meta")))
+
+
+def test_ckpt_bfloat16_interchange_with_jax(tmp_path):
+    """A bfloat16 checkpoint written by the JAX package restores in the
+    port, and the port's save of that tree has the same leaf bytes and
+    on-disk dtypes as JAX's file (the ``.npy`` headers differ only in the
+    byte-order mark of ``V2``: JAX's ``<V2``, numpy's ``|V2``).  The JAX
+    ``restore`` itself refuses its own file: ``|V2 != bfloat16``."""
+    t = mixed_dtype_tree(1)
+    jt = {"m": jnp.asarray(t["m"].view(torch.int16).numpy()).view(
+        jnp.bfloat16), "p": jnp.asarray(t["p"].numpy()),
+          "count": jnp.int32(7)}
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jckpt.CheckpointManager(jdir).save(4, jt, blocking=True)
+    target = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in t.items()}
+    got = tckpt.CheckpointManager(jdir).restore(4, target, device="cpu")
+    assert got["m"].dtype == torch.bfloat16
+    assert torch.equal(got["m"].view(torch.int16), t["m"].view(torch.int16))
+    assert torch.equal(got["p"], t["p"]) and got["count"].item() == 7
+    tckpt.CheckpointManager(tdir).save(4, got, blocking=True)
+    with np.load(os.path.join(jdir, "step_4", "host0.npz")) as zj, \
+            np.load(os.path.join(tdir, "step_4", "host0.npz")) as zt:
+        assert sorted(zj.files) == sorted(zt.files)
+        for name in zj.files:
+            assert zj[name].dtype == zt[name].dtype, name
+            assert zj[name].shape == zt[name].shape, name
+            assert zj[name].tobytes() == zt[name].tobytes(), name
+    with pytest.raises(ValueError, match="V2"):
+        jckpt.CheckpointManager(jdir).restore(4, jt)
 
 
 def test_ckpt_restore_latest_empty_dir(tmp_path):

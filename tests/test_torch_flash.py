@@ -8,7 +8,11 @@ match the JAX Pallas kernel in interpret mode and the JAX model function
 float32, 3e-2 in bfloat16 (the two packages round bfloat16 at the same
 places but sum in other orders).  Ragged lengths, which the Pallas
 kernel refuses, are held to the JAX model function and to a naive
-softmax.  The CUDA kernel runs only on a card: the ``gpu``-marked test
+softmax.  ``FlashAttention``'s gradient is autograd through the plain
+version at the model's chunk of 1024, bit for bit, and within
+``GRAD_ATOL`` of the JAX model function's ``jax.vjp``: 2e-5 in float32,
+8e-3 in bfloat16 (measured: 1.7e-6 and 9.8e-4, one bfloat16 step of a
+gradient near 0.25).  The CUDA kernel runs only on a card: the ``gpu``-marked test
 holds it to its plain version there and needs neither JAX nor the JAX
 package (``python -m pytest -m gpu``), so JAX comes in through a fixture.
 """
@@ -23,6 +27,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.transformer import flash_attention
 
 ATOL = {np.float32: 2e-3, "bfloat16": 3e-2}
+GRAD_ATOL = {np.float32: 2e-5, "bfloat16": 8e-3}
 TORCH_DT = {np.float32: torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -245,6 +250,63 @@ def test_unaligned_tensor_is_copied():
 
 
 # ---------------------------------------------------------------------------
+# the gradient: FlashAttention
+# ---------------------------------------------------------------------------
+
+GRAD_CASES = [(1, 1100, 2, 1, 16, True, None, None),   # two 1024-key chunks
+              (2, 96, 4, 2, 32, True, 40, None),
+              (1, 64, 2, 2, 16, False, None, 30.0)]
+
+
+def plain_grads(q, k, v, g, **opts):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = FA.flash_attention_fwd_plain(q, k, v, kv_chunk=1024, **opts)
+    return out, torch.autograd.grad(out, (q, k, v), g)
+
+
+@pytest.mark.parametrize("dt", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,cap", GRAD_CASES)
+def test_flash_function_gradient(jx, rng, dt, B, S, H, KV, D, causal,
+                                 window, cap):
+    """``FlashAttention``: its forward is ``flash_attention_fwd`` (no
+    launch counted on the CPU), its gradient is autograd through the
+    plain version at the model's chunk of 1024, bit for bit, and within
+    ``GRAD_ATOL`` of the JAX model function's ``jax.vjp``."""
+    import jax
+    q, k, v = (torch.from_numpy(a).to(TORCH_DT[dt])
+               for a in qkv(rng, B, S, S, H, KV, D, dt))
+    g = torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(np.float32)) \
+        .to(TORCH_DT[dt])
+    opts = dict(causal=causal, window=window, softcap=cap)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    FA.reset_launch_counts()
+    out = FA.FlashAttention.apply(*leaves, causal, window, cap)
+    assert torch.equal(out, FA.flash_attention_fwd(q, k, v, **opts))
+    assert FA.LAUNCHES["flash_attention_fwd"] == 0
+    got = torch.autograd.grad(out, leaves, g)
+    _, want = plain_grads(q, k, v, g, **opts)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    jq, jk, jv, jg = (to_jax(jx, x.float().numpy(), dt) for x in (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b, c: jx.model(a, b, c, causal=causal,
+                                              window=window, softcap=cap),
+                     jq, jk, jv)
+    for name, a, b in zip("qkv", got, vjp(jg)):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32), rtol=0,
+                                   atol=GRAD_ATOL[dt], err_msg=f"d{name}")
+
+
+def test_flash_function_without_grad_is_the_forward(rng):
+    q, k, v = (torch.from_numpy(a) for a in qkv(rng, 1, 40, 40, 2, 2, 16,
+                                                np.float32))
+    with torch.no_grad():
+        out = FA.FlashAttention.apply(q, k, v, True, None, None)
+    assert not out.requires_grad
+    assert torch.equal(out, FA.flash_attention_fwd(q, k, v))
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -323,3 +385,27 @@ def test_flash_kernel_matches_plain_on_card():
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(*(torch.zeros(1, 8, 2, 48, device="cuda")
                                  for _ in range(3)))
+
+
+@pytest.mark.gpu
+def test_flash_function_on_card():
+    """``FlashAttention`` on the card: one kernel launch a forward, within
+    ``CARD_TOL`` of the plain version, and a gradient equal bit for bit to
+    autograd through the plain version at the model's chunk of 1024."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernel runs only on one")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, go = (torch.randn(2, 1100, 8, 96, generator=g,
+                                   device="cuda").to(dt) for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        FA.reset_launch_counts()
+        out = FA.FlashAttention.apply(*leaves, True, None, None)
+        assert FA.LAUNCHES["flash_attention_fwd"] == 1
+        got = torch.autograd.grad(out, leaves, go)
+        _, share = FA.card_error(out.detach(),
+                                 FA.flash_attention_fwd_plain(q, k, v))
+        assert share <= 1.0, (dt, share)
+        _, want = plain_grads(q, k, v, go, causal=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), dt
