@@ -82,7 +82,9 @@ fence-routed shards, windows of 8192 operations.  Phases:
    ``RunReport``;
 8. ``[kernels:flash]``: ``flash_attention_fwd`` against its plain
    version on the card at phi3-mini's prefill shape (8 x 2048 tokens, 32
-   heads of 96, bfloat16, causal), yi-34b's heads (56 over 8 KV heads),
+   heads of 96, bfloat16, causal), granite-moe's (24 heads over 8 KV
+   heads of 64; and in float32 at (2, 512)), yi-34b's heads (56 over 8
+   KV heads),
    MQA with a window of 64, a softcap of 50, a ragged length of 1000 at
    head dim 256, head dims 16, 32 and 64, lengths of 17 and 1 (below one
    key tile), no causal mask, q/k/v views whose base is not 16-byte
@@ -97,7 +99,8 @@ fence-routed shards, windows of 8192 operations.  Phases:
    its dtype (timed only);
 9. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
    heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
-   on a CUDA generator seeded with ``SEED``, cast once to bfloat16: a
+   on a CPU generator seeded with ``SEED`` (the same weights as on the
+   CPU), drawn once for phases 9 to 11, cast once to bfloat16: a
    prefill of 8 prompts of 2048 tokens (the flash kernel once a layer,
    checked by its count, and ``forward`` likewise), 64 greedy decode
    steps from its cache; then the same config in float32, whose prefill
@@ -116,8 +119,8 @@ fence-routed shards, windows of 8192 operations.  Phases:
    its dq, dk, dv equal bit for bit to autograd through the plain version
    at the model's chunk of 1024, and one layer's attention forward and
    backward timed at (4, 2048, 32, 32, 96); (b) phi3-mini-3.8b at full
-   width and depth, float32 parameters from ``init_params`` on a CUDA
-   generator seeded with ``SEED``, bfloat16 compute, ``remat`` on, AdamW
+   width and depth, the float32 parameters of 9, bfloat16 compute,
+   ``remat`` on, AdamW
    with bfloat16 moments: ``TRAIN_STEPS`` steps of ``make_train_step`` on
    ``lm_batch`` of 4 x 2048 tokens, every loss and gradient norm finite,
    the last loss below the first, the flash kernel launched twice a
@@ -131,14 +134,34 @@ fence-routed shards, windows of 8192 operations.  Phases:
    ``build/train_ckpt`` (removed at the end): a slow step flagged by the
    watchdog, a failure injected after a checkpoint, the resumed run's
    loss against an uninterrupted run's;
-12. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+12. ``[lm:moe]`` and ``[serve:lm:moe]``: 9 and 10 for granite-moe-3b-a800m
+   at its published widths and depth (32 layers, d 1536, 24 heads over 8
+   KV heads of 64, 40 experts padded to 48, top 8 of width 512, vocab
+   49155 padded to 49408, tied embeddings; 3,903,161,856 parameters by
+   its layout): the prefill's copies dropped at capacity factor 1.25 and
+   its device time by ``moe_apply``'s spans (route, dispatch, expert
+   products, combine) beside the flash kernel's, the float32 check at a
+   capacity factor of E / K = 5.0 (an expert takes every token: no copy
+   dropped);
+13. ``[train:moe]``: 11 (b) and (c) for granite, from the float32
+   weights of 12; every loss, ``lb_loss`` and gradient norm finite;
+14. ``[lm:mla]``: deepseek-v3-671b (~683 B parameters) fits no card, so
+   (i) one MLA layer at its published widths (128 heads, q_lora 1536,
+   kv_lora 512, nope 128 + rope 64, v 128; 187,107,328 parameters) in
+   bfloat16: a prefill of 2 x 512 through the plain chunked attention,
+   16 decode steps over the compressed cache, and in float32 the
+   prefill against 512 decode steps; (ii) its ``smoke()`` config (MLA, a
+   dense first layer, a shared expert, MTP) in float32 on the card and
+   on the CPU: ``forward``, ``prefill``, three decode steps, ``loss_fn``
+   with every gradient and one AdamW step within ``CARD_CPU_TOL``;
+15. check that each path launched its kernels: ``pi_probe``, ``pi_search``
    and ``bitonic_sort`` on the point path, ``pi_probe`` and
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
    window on the serving, the durable, the overload and the LM serving
    path, each of them S = 8 times a window (``pi_range`` S times a
    range-bearing window) on the sharded path, ``flash_attention_fwd``
-   once a layer of every prefill and forward and twice a layer of every
-   train step.
+   once a layer of every GQA prefill and forward and twice a layer of
+   every train step (MLA takes the plain attention, no kernel).
 
 ``--profile N`` adds device time by kernel over N point windows, N
 serving windows and N sharded windows, and one train step's by phase.  The line before the last is a JSON object with one
@@ -195,7 +218,16 @@ OVERLOAD_WINDOWS = 16    # [overload]: windows' worth of the burst
 CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
                 "ckpt.mid_write", "ckpt.pre_rename")
 LM_ARCH = "phi3-mini-3.8b"
-LM_PARAMS = 3_822_259_200        # its parameters, vocab padded to 32256
+MOE_ARCH = "granite-moe-3b-a800m"
+MLA_ARCH = "deepseek-v3-671b"
+# the full-width models' parameters by their layouts: phi3's vocab padded
+# to 32256; granite's vocab padded to 49408 and its 48 padded experts
+LM_PARAMS = {LM_ARCH: 3_822_259_200, MOE_ARCH: 3_903_161_856}
+MLA_LAYER_PARAMS = 187_107_328   # [lm:mla] (i): one MLA layer of deepseek
+MLA_B, MLA_S = 2, 512            # ... its prefill
+MLA_DECODE = 16                  # ... and decode steps over its cache
+# the spans of moe_apply by which a profile splits a MoE layer's time
+MOE_SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
 PREFILL_B, PREFILL_S = 8, 2048   # the [lm] prefill: 8 prompts of 2048
 DECODE_STEPS = 64                # greedy steps from the prefill's cache
 CHECK_B, CHECK_S = 2, 256        # the float32 prefill-vs-decode check
@@ -236,6 +268,7 @@ _BF = torch.bfloat16
 _F32 = torch.float32
 FLASH_CASES = [
     ("phi3", (PREFILL_B, PREFILL_S, 32, 32, 96), _BF, {}),
+    ("granite-moe prefill", (PREFILL_B, PREFILL_S, 24, 8, 64), _BF, {}),
     ("yi-34b GQA", (1, 1024, 56, 8, 128), _BF, {}),
     ("MQA window 64", (2, 1024, 16, 1, 128), _BF, dict(window=64)),
     ("softcap 50", (2, 1024, 32, 32, 96), _BF, dict(softcap=50.0)),
@@ -248,6 +281,7 @@ FLASH_CASES = [
     ("not causal", (2, 1024, 32, 32, 96), _BF, dict(causal=False)),
     ("unaligned views", (2, 300, 32, 32, 96), _BF, dict(unaligned=True)),
     ("float32", (2, 512, 32, 32, 96), _F32, {}),
+    ("float32 granite-moe", (2, 512, 24, 8, 64), _F32, {}),
     ("float32 yi-34b GQA", (1, 1024, 56, 8, 128), _F32, {}),
     ("float32 MQA window 64", (2, 1024, 16, 1, 128), _F32, dict(window=64)),
     ("float32 softcap 50", (2, 1024, 32, 32, 96), _F32, dict(softcap=50.0)),
@@ -287,11 +321,14 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_events(fn, iters: int, operators: bool = True):
+def device_events(fn, iters: int, operators: bool = True, spans=None):
     """The device-side events (kernels, copies) of ``iters`` calls of
     ``fn``, from ``torch.profiler``, and the CPU-side operators (none
     unless ``operators``):
-    ([(name, self device us, count)], [(operator, self device us, count)])."""
+    ([(name, self device us, count)], [(operator, self device us, count)]).
+    ``spans``: a dict of ``record_function`` names, whose values become
+    the device us of the kernels within each (``operators`` on); the
+    spans' own device-side ranges are left out of the events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -303,6 +340,10 @@ def device_events(fn, iters: int, operators: bool = True):
         torch.cuda.synchronize()
     dev, ops = [], []
     for e in prof.key_averages():
+        if e.key in MOE_SPANS:
+            if spans is not None and e.device_type != DeviceType.CUDA:
+                spans[e.key] = e.device_time_total
+            continue
         row = (e.key, e.self_device_time_total, e.count)
         (dev if e.device_type == DeviceType.CUDA else ops).append(row)
     return dev, ops
@@ -2056,19 +2097,18 @@ def check_flash(iters):
     return out
 
 
-def time_split(fn, tag):
+def time_split(fn, tag, spans=()):
     """Device time of one ``fn()`` by kernel class, from the profiler (the
-    flash kernel, the matrix products of cuBLAS, the rest), beside the
-    host's time to enqueue it and its count of PyTorch operators."""
-    dev, ops = device_events(fn, 1)
+    flash kernel, the matrix products of cuBLAS, the rest), and of the
+    named ``spans`` (``record_function`` ranges, kernels within them),
+    beside the host's time to enqueue it and its count of PyTorch
+    operators."""
+    span_us = dict.fromkeys(spans, 0.0)
+    dev, ops = device_events(fn, 1, spans=span_us)
     total = sum(t for _, t, _ in dev) / 1e3
     cls = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
     for name, t, _ in dev:
-        low = name.lower()
-        key = "flash" if "flash_fwd_kernel" in name else "matmul" if any(
-            w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) \
-            else "other"
-        cls[key] += t / 1e3
+        cls[kernel_class(name)] += t / 1e3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -2076,41 +2116,104 @@ def time_split(fn, tag):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_ops = sum(c for name, _, c in ops if name.startswith("aten::"))
-    log(f"[lm] {tag} device time {total:.6f} ms: " + ", ".join(
+    head = tag.split()[0]
+    log(f"{tag} device time {total:.6f} ms: " + ", ".join(
         f"{k} {v:.6f} ms ({100 * v / total:.2f}%)" for k, v in cls.items())
         + f"; unprofiled: host enqueue {1e3 * enqueue:.6f} ms, wall "
         f"{1e3 * wall:.6f} ms; {n_ops} aten operator calls")
+    if spans:
+        log(f"{tag} by span: " + ", ".join(
+            f"{k} {v / 1e3:.6f} ms ({100 * v / 1e3 / total:.2f}%)"
+            for k, v in span_us.items()))
     for name, t, count in sorted(dev, key=lambda r: -r[1])[:6]:
-        log(f"[lm] {tag}   {t / 1e3:10.6f} ms ({count}x) {name[:90]}")
-    return total, cls
+        log(f"{head}   {t / 1e3:10.6f} ms ({count}x) {name[:90]}")
+    return total, cls, {k: v / 1e3 for k, v in span_us.items()}
 
 
-def run_lm():
-    """``[lm]``: phi3-mini-3.8b at full width (see the module docstring).
-    Returns the launch counts of its prefill and forward, and its
+def draw_params(cfg, seed=SEED):
+    """``cfg``'s full parameter tree in its parameter dtype on the card,
+    drawn on a CPU generator seeded with ``seed`` (the same tree as on the
+    CPU)."""
+    from repro_torch.models import init_params, model_layout
+    return init_params(model_layout(cfg), torch.Generator().manual_seed(seed),
+                       cfg.param_dtype, DEVICE)
+
+
+def named_leaves(tree, path=""):
+    """(path, leaf) of every leaf of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def check_prefill_vs_decode(tag, cfg32, params32, tokens):
+    """A float32 prefill of ``tokens`` (the flash kernel, f32) against as
+    many token-by-token decode steps (plain einsums over the cache): the
+    last logits and every cache leaf within 1e-3 of the largest |decode|
+    value (at least 1), positions equal."""
+    from repro_torch.models import make_decode_step, make_prefill_step
+    from repro_torch.models import decode as dec
+    B, S = tokens.shape
+    pl, pcache = make_prefill_step(cfg32)(params32, {"tokens": tokens})
+    dcache = dec.init_cache(cfg32, B, S, device=DEVICE)
+    step32 = make_decode_step(cfg32)
+    for t in range(S):
+        _, dl, dcache = step32(params32, {"cache": dcache,
+                                          "tokens": tokens[:, t:t + 1],
+                                          "idx": t})
+    torch.cuda.synchronize()
+    real = slice(0, cfg32.vocab)          # the padding logits are -1e30
+    pairs = [("logits", pl[..., real], dl[..., real])]
+    for (name, a), (_, b) in zip(named_leaves(pcache), named_leaves(dcache)):
+        if name.endswith("/pos"):
+            assert torch.equal(a, b), name
+        else:
+            pairs.append((name, a, b))
+    rel = 1e-3       # float32 products of another order, every layer deep
+    for name, a, b in pairs:
+        e = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        tol = rel * max(1.0, scale)
+        log(f"{tag} float32 prefill vs {S} decode steps, {name}: "
+            f"max_abs_err {e:.6g} (tolerance {tol:.6g} = {rel} x "
+            f"max(1, max |decode| = {scale:.6g}))")
+        assert np.isfinite(e) and e <= tol, (name, e, tol)
+
+
+def run_lm(arch):
+    """``[lm]`` (phi3-mini-3.8b) and ``[lm:moe]`` (granite-moe-3b-a800m):
+    ``arch`` at full width, see the module docstring.  Returns the launch
+    counts of its prefill, its float32 and compute-dtype weights and its
     numbers."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models import (cast_floats, forward, init_params,
-                                    make_decode_step, make_prefill_step,
-                                    model_layout)
-    from repro_torch.models import decode as dec
+    from repro_torch.models import (cast_floats, forward, make_decode_step,
+                                    make_prefill_step)
+    from repro_torch.models import moe
     from repro_torch.models.base import tree_leaves
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    is_moe = cfg.family != "dense"
+    tag = "[lm:moe]" if is_moe else "[lm]"
     rng = np.random.default_rng(SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    params32 = init_params(model_layout(cfg), gen, cfg.param_dtype)
+    params32 = draw_params(cfg)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
     params = cast_floats(params32, cfg.compute_dtype)   # once, up front
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads ({cfg.n_kv} KV) of {cfg.hd}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab} ({cfg.vocab_padded} padded); {n_params} "
-        f"parameters made and cast to {cfg.compute_dtype} in "
-        f"{time.perf_counter() - t0:.3f} s")
-    assert n_params == LM_PARAMS, n_params
+    ff = (f"{cfg.n_experts} experts ({cfg.experts_padded} padded), top "
+          f"{cfg.top_k}, of width {cfg.d_ff_expert}" if is_moe
+          else f"d_ff {cfg.d_ff}")
+    log(f"{tag} {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv} KV) of {cfg.hd}, {ff}, vocab "
+        f"{cfg.vocab} ({cfg.vocab_padded} padded); {n_params} parameters "
+        f"drawn in float32 on the CPU generator and copied to the card in "
+        f"{t_draw:.3f} s, cast to {cfg.compute_dtype} in "
+        f"{time.perf_counter() - t0 - t_draw:.3f} s")
+    assert n_params == LM_PARAMS[arch], n_params
 
     def toks(b, s):
         return torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
@@ -2122,15 +2225,25 @@ def run_lm():
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    with moe.record_drops() as drops:
+        logits, cache = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     launches = launch_counts()
     assert launches["flash_attention_fwd"] == cfg.n_layers, launches
     assert logits.shape == (PREFILL_B, 1, cfg.vocab_padded)
     assert torch.isfinite(logits).all()
-    assert cache["k"].shape == (cfg.n_layers, PREFILL_B,
-                                PREFILL_S + DECODE_STEPS, cfg.n_kv, cfg.hd)
+    attn = cache["moe"] if is_moe else cache
+    assert attn["k"].shape == (cfg.n_layers, PREFILL_B,
+                               PREFILL_S + DECODE_STEPS, cfg.n_kv, cfg.hd)
+    dropped = ""
+    if is_moe:
+        n_drop = int(torch.stack(drops).sum())
+        copies = cfg.n_layers * PREFILL_B * PREFILL_S * cfg.top_k
+        cap = moe.capacity(cfg, PREFILL_B * PREFILL_S)
+        dropped = (f", copies dropped at capacity factor "
+                   f"{cfg.moe_capacity} ({cap} rows an expert): {n_drop} "
+                   f"of {copies} ({100 * n_drop / copies:.4f}%)")
 
     decode = make_decode_step(cfg)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -2143,21 +2256,22 @@ def run_lm():
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
         assert torch.isfinite(dl).all()
-    assert int(cache["pos"][0, -1]) == PREFILL_S + DECODE_STEPS - 1
+    assert int(attn["pos"][0, -1]) == PREFILL_S + DECODE_STEPS - 1
     steps = np.array(steps) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    log(f"[lm] prefill {PREFILL_B} x {PREFILL_S} tokens: "
+    log(f"{tag} prefill {PREFILL_B} x {PREFILL_S} tokens: "
         f"{1e3 * t_prefill:.6f} ms ({PREFILL_B * PREFILL_S / t_prefill:.1f} "
         f"tokens/s), flash kernel launches {launches['flash_attention_fwd']}"
-        f"; {DECODE_STEPS} greedy decode steps at batch {PREFILL_B}: p50 "
-        f"{np.percentile(steps, 50):.6f} ms, p99 "
+        f"{dropped}; {DECODE_STEPS} greedy decode steps at batch "
+        f"{PREFILL_B}: p50 {np.percentile(steps, 50):.6f} ms, p99 "
         f"{np.percentile(steps, 99):.6f} ms; peak device memory "
         f"{peak / 2**30:.3f} GiB")
+    spans = MOE_SPANS if is_moe else ()
     split_prefill = time_split(lambda: prefill(params, {"tokens": tokens}),
-                               "prefill")
+                               f"{tag} prefill", spans)
     split_decode = time_split(lambda: decode(params, {
         "cache": cache, "tokens": tok[:, None],
-        "idx": PREFILL_S + DECODE_STEPS - 1}), "decode step")
+        "idx": PREFILL_S + DECODE_STEPS - 1}), f"{tag} decode step", spans)
     del cache, logits
 
     reset_launches()
@@ -2168,40 +2282,26 @@ def run_lm():
     del fl
 
     # the model in float32: prefill (the kernel) against token-by-token
-    # decode (plain einsums over the cache)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    tokens = toks(CHECK_B, CHECK_S)
-    pl, pcache = make_prefill_step(cfg32)(params32, {"tokens": tokens})
-    dcache = dec.init_cache(cfg32, CHECK_B, CHECK_S, device=DEVICE)
-    step32 = make_decode_step(cfg32)
-    for t in range(CHECK_S):
-        _, dl, dcache = step32(params32, {"cache": dcache,
-                                          "tokens": tokens[:, t:t + 1],
-                                          "idx": t})
-    torch.cuda.synchronize()
-    real = slice(0, cfg.vocab)           # the padding logits are -1e30
-    errs = {"logits": (pl[..., real] - dl[..., real]).abs().max().item()}
-    scale = {"logits": dl[..., real].abs().max().item()}
-    for name in ("k", "v"):
-        errs[name] = (pcache[name] - dcache[name]).abs().max().item()
-        scale[name] = dcache[name].abs().max().item()
-    assert torch.equal(pcache["pos"], dcache["pos"])
-    rel = 1e-3       # float32 products of another order, 32 layers deep
-    for name, e in errs.items():
-        tol = rel * max(1.0, scale[name])
-        log(f"[lm] float32 prefill vs {CHECK_S} decode steps, {name}: "
-            f"max_abs_err {e:.6g} (tolerance {tol:.6g} = {rel} x "
-            f"max(1, max |decode| = {scale[name]:.6g}))")
-        assert np.isfinite(e) and e <= tol, (name, e, tol)
-    del params32, pcache, dcache
-    return dict(launches=launches, params=params, cfg=cfg,
-                t_prefill=t_prefill, steps=steps, peak=peak,
+    # decode (plain einsums over the cache); a moe model at a capacity
+    # factor of E / K, so that an expert takes every token (cap = N) and
+    # the prefill drops no copy
+    extra = {}
+    if is_moe:
+        extra = dict(moe_capacity=cfg.n_experts / cfg.top_k)
+        cap = moe.capacity(cfg, CHECK_B * CHECK_S, extra["moe_capacity"])
+        log(f"{tag} float32 check at capacity factor "
+            f"{extra['moe_capacity']}: {cap} rows an expert for "
+            f"{CHECK_B * CHECK_S} tokens, drop-free")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **extra)
+    check_prefill_vs_decode(tag, cfg32, params32, toks(CHECK_B, CHECK_S))
+    return dict(launches=launches, params=params, params32=params32,
+                cfg=cfg, t_prefill=t_prefill, steps=steps, peak=peak,
                 split_prefill=split_prefill, split_decode=split_decode)
 
 
-def run_serve_lm(cfg, params):
-    """``[serve:lm]``: the LM server at full width (see the module
-    docstring).  Returns its launch counts."""
+def run_serve_lm(cfg, params, tag):
+    """``[serve:lm]`` / ``[serve:lm:moe]``: the LM server at full width
+    (see the module docstring).  Returns its launch counts."""
     from repro_torch.launch.serve import Request, Server
     from repro_torch.pipeline import recover
     rng = np.random.default_rng(SEED + 3)
@@ -2246,12 +2346,13 @@ def run_serve_lm(cfg, params):
     assert same_state(rec, srv.table), "recovered table != live table"
     n_new = sum(len(r.out) for r in reqs)
     n_prompt = sum(len(r.prompt) for r in reqs)
-    log(f"[serve:lm] {len(reqs)} requests ({n_prompt} prompt tokens, each "
-        f"a decode step over the 8 slots, and {n_new} new tokens) in "
-        f"{ticks} ticks, {wall:.6f} s: {len(reqs) / wall:.6f} requests/s, "
-        f"{n_new / wall:.6f} new tokens/s, {(n_new + n_prompt) / wall:.6f} "
-        f"tokens/s with the prompts; session table: {summary['windows']} "
-        f"windows, {srv.queries_processed} index queries, p50 "
+    log(f"{tag} {cfg.name}: {len(reqs)} requests ({n_prompt} prompt "
+        f"tokens, each a decode step over the 8 slots, and {n_new} new "
+        f"tokens) in {ticks} ticks, {wall:.6f} s: {len(reqs) / wall:.6f} "
+        f"requests/s, {n_new / wall:.6f} new tokens/s, "
+        f"{(n_new + n_prompt) / wall:.6f} tokens/s with the prompts; "
+        f"session table: {summary['windows']} windows, "
+        f"{srv.queries_processed} index queries, p50 "
         f"{summary['p50_ms']:.6f} ms, p99 {summary['p99_ms']:.6f} ms; "
         f"session_range twice against the host; recover replayed "
         f"{len(tail)} windows to the live table bit for bit; kernel "
@@ -2335,7 +2436,8 @@ def step_split(cfg, opt_cfg, params, opt_state, batch):
             torch.cuda.synchronize()
         out[name] = [(e.key, e.self_device_time_total / 1e3)
                      for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA]
+                     if e.device_type == DeviceType.CUDA
+                     and e.key not in MOE_SPANS]
         return res
 
     with torch.enable_grad():
@@ -2351,36 +2453,36 @@ def step_split(cfg, opt_cfg, params, opt_state, batch):
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_f32_kernel" in name:
         return "flash"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul"
     return "other"
 
 
-def train_full_width(profile):
-    """``[train]`` (b): phi3-mini-3.8b at full width and depth, AdamW with
-    bfloat16 moments, ``TRAIN_STEPS`` steps on ``TRAIN_B`` x ``TRAIN_S``
-    tokens of ``lm_batch``.  Returns the flash launches and the numbers."""
-    from repro_torch import data
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_train_state, make_train_step
+def train_full_width(cfg, params, profile, tag):
+    """``[train]`` / ``[train:moe]`` (b): ``cfg`` at full width and depth,
+    from its float32 ``params`` (drawn once for the model's ``[lm]``
+    phase and updated in place here), AdamW with bfloat16 moments,
+    ``TRAIN_STEPS`` steps on ``TRAIN_B`` x ``TRAIN_S`` tokens of
+    ``lm_batch``.  Returns the flash launches and the numbers."""
+    from repro_torch import data, optim
+    from repro_torch.models import make_train_step
     from repro_torch.models.base import tree_leaves
-    cfg = get_config(LM_ARCH)
     assert cfg.remat and cfg.compute_dtype == "bfloat16"
     assert not torch.backends.cuda.matmul.allow_tf32
+    is_moe = cfg.family != "dense"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     opt = train_opt()
-    params, opt_state = init_train_state(cfg, opt, gen)
+    opt_state = optim.init(opt, params)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    assert n_params == LM_PARAMS, n_params
+    assert n_params == LM_PARAMS[cfg.name], n_params
     state_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"[train] {LM_ARCH}: {n_params} float32 parameters and AdamW "
-        f"moments in {opt.moment_dtype} made in "
+    log(f"{tag} {cfg.name}: {n_params} float32 parameters (the [lm] "
+        f"phase's draw) and AdamW moments in {opt.moment_dtype} made in "
         f"{time.perf_counter() - t0:.3f} s: {state_gib:.3f} GiB on the "
         f"card; {opt}")
     dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
@@ -2390,12 +2492,14 @@ def train_full_width(profile):
     step = make_train_step(cfg, opt)
     torch.cuda.synchronize()
     reset_launches()
-    losses, norms, times = [], [], []
+    losses, lbs, norms, times = [], [], [], []
     for batch in batches[:TRAIN_STEPS]:
         t0 = time.perf_counter()
         params, opt_state, metrics = step(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+        if is_moe:
+            lbs.append(float(metrics["lb_loss"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = launch_counts()
@@ -2403,13 +2507,15 @@ def train_full_width(profile):
     times = np.array(times) * 1e3
     p50 = float(np.percentile(times, 50))
     tokens = TRAIN_B * TRAIN_S
-    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens: "
-        f"losses {losses}, grad norms {norms}; step times {times.tolist()} "
-        f"ms, p50 {p50:.6f} ms ({tokens / p50 * 1e3:.1f} tokens/s); peak "
-        f"device memory {peak / 2 ** 30:.3f} GiB; flash kernel launches "
+    log(f"{tag} {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens: "
+        f"losses {losses}, " + (f"lb_loss {lbs}, " if is_moe else "") +
+        f"grad norms {norms}; step times {times.tolist()} ms, p50 "
+        f"{p50:.6f} ms ({tokens / p50 * 1e3:.1f} tokens/s); peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB; flash kernel launches "
         f"{launches['flash_attention_fwd']}")
-    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
-    assert losses[-1] < losses[0], losses
+    assert all(np.isfinite(losses + lbs + norms)), (losses, lbs, norms)
+    if not is_moe:
+        assert losses[-1] < losses[0], losses
     assert launches["flash_attention_fwd"] == \
         2 * cfg.n_layers * TRAIN_STEPS, launches
     split = None
@@ -2426,12 +2532,13 @@ def train_full_width(profile):
             parts.append(f"{phase} {ms:.6f} ms ({100 * ms / total:.2f}%: " +
                          ", ".join(f"{k} {v:.6f}" for k, v in
                                    sorted(cls.items())) + ")")
-        log(f"[profile:train] one step's device time {total:.6f} ms, "
+        log(f"[profile:{tag[1:-1]}] one step's device time {total:.6f} ms, "
             f"{100 * total / p50:.2f}% of the unprofiled p50 step: " +
             "; ".join(parts))
         for phase, rows in split.items():
             for name, t in sorted(rows, key=lambda r: -r[1])[:5]:
-                log(f"[profile:train] {phase:9s} {t:10.6f} ms {name[:90]}")
+                log(f"[profile:{tag[1:-1]}] {phase:9s} {t:10.6f} ms "
+                    f"{name[:90]}")
     del params, opt_state, batches
     torch.cuda.empty_cache()
     return launches, dict(p50=p50, tokens_s=tokens / p50 * 1e3, peak=peak,
@@ -2449,28 +2556,27 @@ def tree_max_err(got, want, path=""):
             max(b.abs().max().item(), 1e-30), path)
 
 
-def train_card_vs_cpu():
-    """``[train]`` (c): one AdamW step of phi3's widths at ``CHECK_LAYERS``
-    layers in float32 on the card (the float32 kernel in the forward) and
-    on the CPU (the plain attention), from the same weights and batch."""
+def train_card_vs_cpu(arch, tag):
+    """``[train]`` / ``[train:moe]`` (c): one AdamW step of ``arch``'s
+    widths at ``CHECK_LAYERS`` layers in float32 on the card (the float32
+    kernel in the forward) and on the CPU (the plain attention), from the
+    same weights and batch, both drawn on the CPU generator."""
     import dataclasses
     from repro_torch import data, optim
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params, loss_and_grad, model_layout
+    from repro_torch.models import loss_and_grad
     from repro_torch.models.base import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=CHECK_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), n_layers=CHECK_LAYERS,
                               compute_dtype="float32")
     opt = train_opt(moment_dtype="float32")
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    card = init_params(model_layout(cfg), gen, cfg.param_dtype)
+    card = draw_params(cfg, SEED + 5)
     host = tree_map(lambda a: a.to("cpu", copy=True), card)
     dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=CHECK_TRAIN_S,
                            global_batch=1, seed=SEED + 5)
-    batch = data.lm_batch(dcfg, 0, device=DEVICE)
     out = {}
     for where, params in (("card", card), ("cpu", host)):
         t0 = time.perf_counter()
-        b = {k: v.to(params["final_norm"].device) for k, v in batch.items()}
+        b = data.lm_batch(dcfg, 0, device=params["final_norm"].device)
         (loss, _), grads = loss_and_grad(cfg, params, b)
         # a copy before the update clips the gradients in place
         grads_cpu = tree_map(lambda a: a.to("cpu", copy=True), grads)
@@ -2478,7 +2584,7 @@ def train_card_vs_cpu():
                                      params)
         out[where] = (loss.item(), grads_cpu, tree_map(lambda a: a.cpu(),
                                                        params), gn.item())
-        log(f"[train] card vs cpu: the {where} step took "
+        log(f"{tag} card vs cpu: the {where} step took "
             f"{time.perf_counter() - t0:.3f} s")
     (l_c, g_c, p_c, n_c), (l_h, g_h, p_h, n_h) = out["card"], out["cpu"]
     loss_err = abs(l_c - l_h) / abs(l_h)
@@ -2490,7 +2596,7 @@ def train_card_vs_cpu():
         moved = max(moved, d.max().item())
         bar = CARD_CPU_TOL["param"] * lr + 2.0 ** -22 * b.abs()
         param_share = max(param_share, (d / bar).max().item())
-    log(f"[train] card vs cpu, {CHECK_LAYERS} layers of {LM_ARCH} in "
+    log(f"{tag} card vs cpu, {CHECK_LAYERS} layers of {arch} in "
         f"float32, 1 x {CHECK_TRAIN_S} tokens, one AdamW step: loss "
         f"{l_c:.9g} vs {l_h:.9g} (relative {loss_err:.3g}, bar "
         f"{CARD_CPU_TOL['loss']:g}); grad norm {n_c:.9g} vs {n_h:.9g}; "
@@ -2571,15 +2677,19 @@ def train_driver():
     return dict(resume_err=err)
 
 
-def run_train(profile, iters):
-    """``[train]``: (a) to (d) above.  Returns the launch counts of (b),
-    the full-width steps."""
+def run_train(params32, profile, iters):
+    """``[train]``: (a) to (d) above, (b) from phi3's float32 ``params32``
+    of ``[lm]``.  Returns the launch counts of (b), the full-width
+    steps."""
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     grad = check_flash_grad(iters)
     log(f"[time] [train] (a) {time.perf_counter() - t0:.3f} s")
-    launches, full = train_full_width(profile)
+    launches, full = train_full_width(get_config(LM_ARCH), params32, profile,
+                                      "[train]")
+    del params32
     log(f"[time] [train] (b) {time.perf_counter() - t0:.3f} s")
-    vs_cpu = train_card_vs_cpu()
+    vs_cpu = train_card_vs_cpu(LM_ARCH, "[train]")
     log(f"[time] [train] (c) {time.perf_counter() - t0:.3f} s")
     driver = train_driver()
     log(f"[time] [train] (d) {time.perf_counter() - t0:.3f} s")
@@ -2591,6 +2701,207 @@ def run_train(profile, iters):
             f"device time")
     return launches, dict(grad=grad, full=full, vs_cpu=vs_cpu,
                           driver=driver)
+
+
+def run_train_moe(params32, profile):
+    """``[train:moe]``: (b) granite-moe-3b-a800m at full width and depth
+    from ``[lm:moe]``'s float32 ``params32``, (c) its widths at
+    ``CHECK_LAYERS`` layers, card against CPU.  Returns the launch counts
+    of (b)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    launches, full = train_full_width(get_config(MOE_ARCH), params32,
+                                      profile, "[train:moe]")
+    del params32
+    log(f"[time] [train:moe] (b) {time.perf_counter() - t0:.3f} s")
+    vs_cpu = train_card_vs_cpu(MOE_ARCH, "[train:moe]")
+    log(f"[time] [train:moe] (c) {time.perf_counter() - t0:.3f} s")
+    return launches, dict(full=full, vs_cpu=vs_cpu)
+
+
+def mla_layer(tag):
+    """``[lm:mla]`` (i): one MLA layer (``mla_apply``) at deepseek-v3's
+    published widths in bfloat16: a prefill of ``MLA_B`` x ``MLA_S``
+    through the plain chunked attention, ``MLA_DECODE`` decode steps over
+    the compressed cache, and in float32 the prefill against ``MLA_S``
+    decode steps."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import cast_floats, init_params, moe
+    from repro_torch.models.base import tree_leaves, tree_map
+    cfg = get_config(MLA_ARCH)
+    tree = init_params(moe.mla_layout(cfg, "attn", 1),
+                       torch.Generator().manual_seed(SEED + 6),
+                       cfg.param_dtype, DEVICE)
+    p = tree_map(lambda a: a[0], tree["attn"])
+    n_params = sum(x.numel() for x in tree_leaves(p))
+    assert n_params == MLA_LAYER_PARAMS, n_params
+    B, S, T = MLA_B, MLA_S, MLA_S + MLA_DECODE
+    kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    x = torch.randn(B, T, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(SEED + 7)).to(DEVICE)
+    pos = torch.arange(T, device=DEVICE).expand(B, T)
+    xb = x.to(torch.bfloat16)
+    reset_launches()
+    with torch.no_grad():
+        moe.mla_apply(cfg, p, xb[:, :16], pos[:, :16])      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, (c_kv, k_rope) = moe.mla_apply(cfg, p, xb[:, :S], pos[:, :S])
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        assert o.shape == (B, S, cfg.d_model) and torch.isfinite(o).all()
+        cache = {"c_kv": torch.zeros(B, T, kvr, dtype=o.dtype, device=DEVICE),
+                 "k_rope": torch.zeros(B, T, 1, dr, dtype=o.dtype,
+                                       device=DEVICE)}
+        cache["c_kv"][:, :S] = c_kv
+        cache["k_rope"][:, :S] = k_rope
+        steps = []
+        for t in range(S, T):
+            t0 = time.perf_counter()
+            o1, _ = moe.mla_apply(cfg, p, xb[:, t:t + 1], pos[:, t:t + 1],
+                                  cache=dict(cache, idx=t))
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            assert torch.isfinite(o1).all()
+    assert launch_counts()["flash_attention_fwd"] == 0   # the plain path
+    steps = np.array(steps) * 1e3
+    per_token = (kvr + dr) * 2
+    gqa = 2 * cfg.n_heads * (cfg.qk_nope_dim + dr) * 2
+    log(f"{tag} (i) one MLA layer of {MLA_ARCH} at its published widths "
+        f"({cfg.n_heads} heads, q_lora {cfg.q_lora_rank}, kv_lora {kvr}, "
+        f"nope {cfg.qk_nope_dim} + rope {dr}, v {cfg.v_head_dim}; "
+        f"{n_params} parameters, {cfg.param_dtype}): prefill {B} x {S} "
+        f"through the plain chunked attention {1e3 * t_prefill:.6f} ms; "
+        f"{MLA_DECODE} decode steps over the compressed cache ({per_token} "
+        f"bytes a token a layer against {gqa} for uncompressed keys and "
+        f"values): p50 {np.percentile(steps, 50):.6f} ms, p99 "
+        f"{np.percentile(steps, 99):.6f} ms")
+
+    # float32: the prefill against S decode steps over the cache
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = cast_floats(p, "float32")
+    x32 = x[:, :S]
+    with torch.no_grad():
+        o_p, (ck_p, kr_p) = moe.mla_apply(cfg32, p32, x32, pos[:, :S])
+        c32 = {"c_kv": torch.zeros(B, S, kvr, device=DEVICE),
+               "k_rope": torch.zeros(B, S, 1, dr, device=DEVICE)}
+        o_d = torch.cat([moe.mla_apply(cfg32, p32, x32[:, t:t + 1],
+                                       pos[:, t:t + 1],
+                                       cache=dict(c32, idx=t))[0]
+                         for t in range(S)], 1)
+    torch.cuda.synchronize()
+    rel = 1e-3
+    for name, a, b in (("output", o_p, o_d), ("c_kv", ck_p, c32["c_kv"]),
+                       ("k_rope", kr_p, c32["k_rope"])):
+        e = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        tol = rel * max(1.0, scale)
+        log(f"{tag} (i) float32 prefill vs {S} decode steps, {name}: "
+            f"max_abs_err {e:.6g} (tolerance {tol:.6g} = {rel} x max(1, "
+            f"max |decode| = {scale:.6g}))")
+        assert np.isfinite(e) and e <= tol, (name, e, tol)
+    del tree, p, p32, cache, c32
+
+
+def mla_smoke_card_vs_cpu(tag):
+    """``[lm:mla]`` (ii): deepseek-v3's ``smoke()`` config (MLA, a dense
+    first layer, sigmoid routing, a shared expert, MTP) in float32 on the
+    card and on the CPU from the same weights and inputs: ``forward``,
+    ``prefill`` and three decode steps (logits and every cache leaf), then
+    ``loss_fn`` with every gradient leaf and one AdamW step, each within
+    ``CARD_CPU_TOL``."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import (forward, loss_and_grad,
+                                    make_decode_step, make_prefill_step)
+    from repro_torch.models.base import tree_leaves, tree_map
+    cfg = smoke(get_config(MLA_ARCH))
+    assert cfg.use_mla and cfg.first_k_dense and cfg.mtp_depth
+    opt = train_opt(moment_dtype="float32")
+    card = draw_params(cfg, SEED + 8)
+    host = tree_map(lambda a: a.to("cpu", copy=True), card)
+    rng = np.random.default_rng(SEED + 8)
+    B, S = 2, 64
+    np_in = {k: rng.integers(0, cfg.vocab, shape).astype(np.int32)
+             for k, shape in (("tokens", (B, S)), ("labels", (B, S)),
+                              ("steps", (3, B, 1)))}
+    out = {}
+    for where, params in (("card", card), ("cpu", host)):
+        t0 = time.perf_counter()
+        dev = params["final_norm"].device
+        t = {k: torch.from_numpy(v).to(dev) for k, v in np_in.items()}
+        r = {}
+        with torch.no_grad():
+            real = slice(0, cfg.vocab)   # the padding logits are -1e30
+            logits, aux = forward(cfg, params, tokens=t["tokens"])
+            r["forward"], r["forward lb_loss"] = logits[..., real], \
+                aux["lb_loss"]
+            logits, cache = make_prefill_step(cfg, total_len=S + 3)(
+                params, {"tokens": t["tokens"]})
+            r["prefill"] = logits[..., real]
+            r["prefill cache"] = tree_map(lambda a: a.clone(), cache)
+            decode = make_decode_step(cfg)
+            for i in range(3):
+                _, logits, cache = decode(params, {
+                    "cache": cache, "tokens": t["steps"][i], "idx": S + i})
+                r[f"decode {i}"] = logits[..., real]
+            r["decode cache"] = cache
+        (loss, metrics), grads = loss_and_grad(
+            cfg, params, {"tokens": t["tokens"], "labels": t["labels"]})
+        r["metrics"] = metrics
+        r["grads"] = tree_map(lambda a: a.to("cpu", copy=True), grads)
+        r["params"], _, _ = optim.update(opt, grads, optim.init(opt, params),
+                                         params)
+        out[where] = tree_map(lambda a: a.cpu(), r)
+        log(f"{tag} (ii) {where}: {time.perf_counter() - t0:.3f} s")
+    c, h = out["card"], out["cpu"]
+    errs = {}
+    for key in h:
+        if key in ("metrics", "params"):
+            continue
+        errs[key] = tree_max_err(c[key], h[key])
+    loss_err = max(abs(c["metrics"][k].item() - h["metrics"][k].item()) /
+                   abs(h["metrics"][k].item()) for k in h["metrics"])
+    lr = optim.schedule(opt, torch.tensor(1)).item()
+    share = max(((a - b).abs() / (CARD_CPU_TOL["param"] * lr +
+                                  2.0 ** -22 * b.abs())).max().item()
+                for a, b in zip(tree_leaves(c["params"]),
+                                tree_leaves(h["params"])))
+    log(f"{tag} (ii) smoke() of {MLA_ARCH} ({cfg.n_layers} layers, "
+        f"{cfg.first_k_dense} dense, {cfg.n_experts} experts top "
+        f"{cfg.top_k} + {cfg.n_shared_experts} shared, MTP {cfg.mtp_depth}) "
+        f"in float32, {B} x {S} tokens, card vs cpu: largest error of a "
+        f"leaf over its largest |value| " + ", ".join(
+            f"{k} {e:.3g}" for k, (e, _) in errs.items()) +
+        f" (bar {CARD_CPU_TOL['grad']:g}); metrics "
+        f"{ {k: round(v.item(), 6) for k, v in h['metrics'].items()} }, "
+        f"largest relative error {loss_err:.3g} (bar "
+        f"{CARD_CPU_TOL['loss']:g}); updated parameters: {share:.3g} of "
+        f"the bar ({CARD_CPU_TOL['param']:g} x lr + one float32 ulp)")
+    assert sorted(h["metrics"]) == ["lb_loss", "loss", "mtp_loss", "nll"]
+    for k, (e, leaf) in errs.items():
+        assert e <= CARD_CPU_TOL["grad"], (k, e, leaf)
+    assert loss_err <= CARD_CPU_TOL["loss"], loss_err
+    assert share <= 1.0, share
+
+
+def run_mla():
+    """``[lm:mla]``: deepseek-v3-671b in the two forms one card holds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_params, model_layout, tree_bytes
+    cfg = get_config(MLA_ARCH)
+    n = tree_bytes(abstract_params(model_layout(cfg), "bfloat16")) // 2
+    log(f"[lm:mla] {MLA_ARCH} has {n} parameters by its layout "
+        f"({cfg.param_count()} by param_count; {2 * n / 1e12:.3f} TB in "
+        f"bfloat16): it fits no single card at any precision, so it runs "
+        f"as (i) one MLA layer at its published widths and (ii) its "
+        f"smoke() config")
+    t0 = time.perf_counter()
+    mla_layer("[lm:mla]")
+    log(f"[time] [lm:mla] (i) {time.perf_counter() - t0:.3f} s")
+    mla_smoke_card_vs_cpu("[lm:mla]")
+    log(f"[time] [lm:mla] (ii) {time.perf_counter() - t0:.3f} s")
 
 
 def main(argv=None) -> int:
@@ -2760,20 +3071,39 @@ def main(argv=None) -> int:
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 9. the LM path: prefill and decode at full width ------------------
-    lm = run_lm()
+    lm = run_lm(LM_ARCH)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 10. the LM server --------------------------------------------------
-    serve_lm_launches = run_serve_lm(lm["cfg"], lm["params"])
-    lm_launches = lm["launches"]
+    serve_lm_launches = run_serve_lm(lm["cfg"], lm["params"], "[serve:lm]")
+    lm_launches, params32 = lm["launches"], lm["params32"]
     del lm
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 11. training: the flash kernel under autograd, phi3-mini steps ----
-    train_launches, _ = run_train(args.profile, 3)
+    train_launches, _ = run_train(params32, args.profile, 3)
+    del params32
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 12. launch counts ------------------------------------------------
+    # -- 12. the moe family: granite-moe-3b-a800m served ------------------
+    lm = run_lm(MOE_ARCH)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    serve_moe_launches = run_serve_lm(lm["cfg"], lm["params"],
+                                      "[serve:lm:moe]")
+    moe_launches, params32 = lm["launches"], lm["params32"]
+    del lm
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 13. ... and trained ------------------------------------------------
+    train_moe_launches, _ = run_train_moe(params32, args.profile)
+    del params32
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 14. the mla_moe family: deepseek-v3's MLA layer and smoke config -
+    run_mla()
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 15. launch counts ------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
@@ -2785,7 +3115,8 @@ def main(argv=None) -> int:
     assert overload_launches["pi_probe"] >= 1, overload_launches
     paths = (launches, serve_launches, durable_launches, sharded_launches,
              overload_launches, lm_launches, serve_lm_launches,
-             train_launches)
+             train_launches, moe_launches, serve_moe_launches,
+             train_moe_launches)
 
     def total(name):
         return sum(p[name] for p in paths)

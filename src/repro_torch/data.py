@@ -4,10 +4,11 @@ Counterpart of ``repro.data``.  Everything is a function of (seed, step,
 host), so a restarted or resumed run needs no pipeline state in its
 checkpoints.
 
-* ``lm_batch`` draws on a ``torch.Generator`` seeded from (seed, step,
-  host), on the target device: the JAX package's formulas (zipf-like
-  ranks ``u ** (-1/1.1)`` clipped to ``vocab - 1``, tokens and labels
-  shifted by one), other numbers than ``jax.random`` gives.
+* ``lm_batch`` draws on a CPU ``torch.Generator`` seeded from (seed,
+  step, host) and copies the batch to the target device, so one seed
+  gives the same batch on every device: the JAX package's formulas
+  (zipf-like ranks ``u ** (-1/1.1)`` clipped to ``vocab - 1``, tokens and
+  labels shifted by one), other numbers than ``jax.random`` gives.
 * The YCSB half is numpy and a copy of the JAX package's: the same seed
   gives the same keys, values and batches in both packages.
 """
@@ -41,17 +42,17 @@ def lm_batch(cfg: DataConfig, step: int, host: int = 0, n_hosts: int = 1,
     b = cfg.global_batch // n_hosts
     seed = np.random.SeedSequence([cfg.seed, step, host]).generate_state(
         1, np.uint64)[0]
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = torch.Generator().manual_seed(int(seed))   # on the CPU
     # zipf via exponentiated uniform: rank ~ u^(-1/s), s≈1.1
-    u = torch.rand((b, cfg.seq_len + 1), generator=gen, device=device)
+    u = torch.rand((b, cfg.seq_len + 1), generator=gen)
     u = 1e-6 + (1 - 1e-6) * u
     ranks = torch.clamp((u ** (-1.0 / 1.1)).to(torch.int32), 0, cfg.vocab - 1)
+    ranks = ranks.to(device)
     tokens = ranks[:, :-1]
     labels = ranks[:, 1:]
     if cfg.input_mode == "embeddings":
-        emb = torch.randn((b, cfg.seq_len, cfg.d_model), generator=gen,
-                          device=device)
-        return {"embeds": emb, "labels": labels}
+        emb = torch.randn((b, cfg.seq_len, cfg.d_model), generator=gen)
+        return {"embeds": emb.to(device), "labels": labels}
     return {"tokens": tokens, "labels": labels}
 
 

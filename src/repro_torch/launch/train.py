@@ -89,8 +89,8 @@ def train(cfg: ModelConfig, opt_cfg: optim.OptConfig,
             {"params": params, "opt": opt_state}, device=dev)
         restored_from, start = step0, step0 + 1
     else:
-        gen = torch.Generator(device=dev).manual_seed(loop.seed)
-        params, opt_state = init_train_state(cfg, opt_cfg, gen)
+        gen = torch.Generator().manual_seed(loop.seed)
+        params, opt_state = init_train_state(cfg, opt_cfg, gen, dev)
         state = {"params": params, "opt": opt_state}
         start = 0
 

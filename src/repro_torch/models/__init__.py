@@ -1,8 +1,9 @@
-"""Model zoo of the port: the dense family as PyTorch functions over the
-JAX package's parameter trees, prefill and training through the CUDA
-flash kernel.
+"""Model zoo of the port: the dense, moe and mla_moe families as PyTorch
+functions over the JAX package's parameter trees, GQA prefill and
+training through the CUDA flash kernel (``models.moe``: routed experts
+by the PI sorted dispatch, MLA, MTP).
 
-Not ported yet (ROADMAP A10): the moe, mla_moe, ssm and griffin families.
+Not ported yet (ROADMAP A10): the ssm and griffin families.
 """
 from repro_torch.models.base import (ModelConfig, abstract_params,
                                      cast_floats, init_params,

@@ -8,9 +8,10 @@ the JAX package's keys (``blocks/attn/wq`` → ``tree["blocks"]["attn"]
 ["wq"]``), so ``params_from_numpy`` / ``params_to_numpy`` carry one set of
 weights across the packages leaf for leaf.
 
-``init_params`` draws from an explicit ``torch.Generator`` on the target
-device: the same layout, init kinds and scales as the JAX package, other
-numbers than ``jax.random`` gives (the parity tests carry the JAX
+``init_params`` draws from an explicit CPU ``torch.Generator`` and copies
+to the target device, so one seed gives the same weights on the CPU and
+on the card: the same layout, init kinds and scales as the JAX package,
+other numbers than ``jax.random`` gives (the parity tests carry the JAX
 package's weights instead).  Sharding has no place on one card, so the
 logical axes (``spec_tree``) are kept for parity only: nothing maps them
 onto devices.
@@ -188,13 +189,21 @@ def abstract_params(layout: Layout, dtype) -> Dict:
                        for k, v in layout.items()})
 
 
-def init_params(layout: Layout, generator: torch.Generator, dtype) -> Dict:
-    """Draw every parameter of ``layout`` on the generator's device, in
-    sorted name order: zeros / ones, or a normal scaled by 1/sqrt(fan_in)
-    (``scale`` when given, 0.02 for ``small``), drawn in float32 and cast
-    to ``dtype``."""
+def init_params(layout: Layout, generator: torch.Generator, dtype,
+                device=None) -> Dict:
+    """Every parameter of ``layout`` on ``device`` (default: the card):
+    zeros / ones, or a normal scaled by 1/sqrt(fan_in) (``scale`` when
+    given, 0.02 for ``small``), drawn in float32 on the CPU ``generator``
+    and cast to ``dtype``.  The draw order: the leaves in sorted name
+    order; a leaf of three or more dims (a stack of layers) one slab of
+    its leading dim at a time, each slab copied to the device before the
+    next is drawn (host memory stays near one slab); a smaller leaf
+    whole."""
+    if generator.device.type != "cpu":
+        raise ValueError("init_params draws on a CPU generator, so that a "
+                         "seed gives the same weights on every device")
     dt = torch_dtype(dtype)
-    dev = generator.device
+    dev = _device(device)
     flat = {}
     for k in sorted(layout):
         d = layout[k]
@@ -207,9 +216,10 @@ def init_params(layout: Layout, generator: torch.Generator, dtype) -> Dict:
             scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
             if d.init == "small":
                 scale = 0.02
-            arr = torch.randn(d.shape, generator=generator,
-                              dtype=torch.float32, device=dev)
-            arr = arr.mul_(scale).to(dt)
+            arr = torch.empty(d.shape, dtype=dt, device=dev)
+            for slab in (arr if arr.dim() >= 3 else arr[None]):
+                slab.copy_(torch.randn(slab.shape, generator=generator,
+                                       dtype=torch.float32).mul_(scale))
         flat[k] = arr
     return _unflatten(flat)
 

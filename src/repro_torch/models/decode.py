@@ -1,18 +1,25 @@
-"""Serving paths of the dense family: KV cache, prefill, one-token decode.
+"""Serving paths of the ported families: KV cache, prefill, one-token
+decode.
 
-Counterpart of ``repro.models.decode``.  Cache layout (leaves stacked
+Counterpart of ``repro.models.decode``.  Cache layouts (leaves stacked
 over layers):
 
-  dense : k/v (L,B,T,KV,hd), pos (L,T) — T = window for sliding-window
-          archs (a ring buffer), else the cache length
+  dense    : k/v (L,B,T,KV,hd), pos (L,T) — T = window for
+             sliding-window archs (a ring buffer), else the cache length
+  moe      : the same under "moe" (+ a "dense" stack for the leading
+             dense layers)
+  mla_moe  : c_kv (L,B,T,kv_lora), k_rope (L,B,T,1,dr) under "moe" and
+             "dense" — MLA's compressed cache, written at the absolute
+             position (no ring)
 
-``prefill`` runs the prompt through every layer with the flash kernel
-(one launch a layer on the card) and places the captured keys and values
-in a new cache.  ``decode_step`` writes one position of the cache in
-place and attends over it with plain einsums, as the JAX package does
-outside any Pallas kernel; the cache dict it returns holds the tensors it
-was given.  The other families raise ``NotImplementedError`` with the
-ROADMAP item that ports them.
+``prefill`` runs the prompt through every layer, GQA attention with the
+flash kernel (one launch a layer on the card; MLA takes the plain chunked
+attention), and places the captured keys and values in a new cache.
+``decode_step`` writes one position of the cache in place and attends
+over it with plain einsums, as the JAX package does outside any Pallas
+kernel; the cache dict it returns holds the tensors it was given.  The
+ssm and griffin families raise ``NotImplementedError`` with the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 
 from repro_torch.core.index import _device
 from repro_torch.models.base import ModelConfig, cast_floats, torch_dtype
-from repro_torch.models.transformer import (_check_dense, add_positions,
+from repro_torch.models.transformer import (_check_ported, add_positions,
                                             dense_block_apply, embed_tokens,
                                             norm, unbind_layers, unembed)
 
@@ -44,9 +51,23 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 def init_cache(cfg: ModelConfig, B: int, seq_len: int, device=None):
     """An empty cache for ``B`` sequences of up to ``seq_len`` positions,
     on ``device`` (default: the card)."""
-    _check_dense(cfg)
-    return _attn_cache(cfg, cfg.n_layers, B, cache_len(cfg, seq_len),
-                       torch_dtype(cfg.compute_dtype), _device(device))
+    _check_ported(cfg)
+    dt, dev = torch_dtype(cfg.compute_dtype), _device(device)
+    T = cache_len(cfg, seq_len)
+    if cfg.family == "dense":
+        return _attn_cache(cfg, cfg.n_layers, B, T, dt, dev)
+
+    def stack(layers):
+        if not cfg.use_mla:
+            return _attn_cache(cfg, layers, B, T, dt, dev)
+        return {"c_kv": torch.zeros((layers, B, T, cfg.kv_lora_rank),
+                                    dtype=dt, device=dev),
+                "k_rope": torch.zeros((layers, B, T, 1, cfg.qk_rope_dim),
+                                      dtype=dt, device=dev)}
+    out = {"moe": stack(cfg.n_layers - cfg.first_k_dense)}
+    if cfg.first_k_dense:
+        out["dense"] = stack(cfg.first_k_dense)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +78,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
     """One token for the whole batch.  tokens: (B,1) (or embeds (B,1,d));
     idx: the absolute position (an int).  Returns (logits (B,1,V), cache),
     the cache written in place."""
-    _check_dense(cfg)
+    _check_ported(cfg)
+    from repro_torch.models import moe
+
     params = cast_floats(params, cfg.compute_dtype)
     if cfg.input_mode == "embeddings":
         x = tokens.to(torch_dtype(cfg.compute_dtype))
@@ -67,11 +90,25 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
     idx = int(idx)
     positions = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
     x = add_positions(cfg, x, positions)
-    slot = idx % cache["k"].shape[2]
-    for i, p_l in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
-        c_l = {"k": cache["k"][i], "v": cache["v"][i],
-               "pos": cache["pos"][i], "slot": slot}
-        x, _ = dense_block_apply(cfg, p_l, x, positions, cache=c_l)
+
+    def run(layer_fn, block_params, stack):
+        """Every layer of one stack, its cache views written in place:
+        GQA at the ring slot, MLA at the absolute position."""
+        nonlocal x
+        for i, p_l in enumerate(unbind_layers(block_params)):
+            c_l = {k: c[i] for k, c in stack.items()}
+            if cfg.use_mla:
+                c_l["idx"] = idx
+            else:
+                c_l["slot"] = idx % c_l["k"].shape[1]
+            x = layer_fn(cfg, p_l, x, positions, cache=c_l)[0]
+
+    if cfg.family == "dense":
+        run(dense_block_apply, params["blocks"], cache)
+    else:
+        if cfg.first_k_dense:
+            run(moe.dense_layer, params["blocks"]["dense"], cache["dense"])
+        run(moe.moe_layer, params["blocks"]["moe"], cache["moe"])
     x = norm(cfg, x, params["final_norm"])
     return unembed(cfg, params, x), cache
 
@@ -105,7 +142,9 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
             total_len: int | None = None):
     """Full-prompt forward that also builds the decode cache.
     Returns (last-token logits (B,1,V), cache)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
+    from repro_torch.models import moe
+
     params = cast_floats(params, cfg.compute_dtype)
     if cfg.input_mode == "embeddings":
         x = embeds.to(torch_dtype(cfg.compute_dtype))
@@ -116,14 +155,36 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
     T = cache_len(cfg, total_len)
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = add_positions(cfg, x, positions)
-    ks, vs = [], []
-    for p_l in unbind_layers(params["blocks"], cfg.n_layers):
-        x, (k, v) = dense_block_apply(cfg, p_l, x, positions)
-        ks.append(k)
-        vs.append(v)
-    ck, pos = _fill_ring(torch.stack(ks), T)
-    del ks
-    cv, _ = _fill_ring(torch.stack(vs), T)
+
+    def run(layer_fn, block_params):
+        """Every layer of one stack → its cache: (k, v, pos) packed into
+        the ring, or MLA's (c_kv, k_rope) at positions 0..S-1."""
+        nonlocal x
+        parts = None
+        for p_l in unbind_layers(block_params):
+            x, kv = layer_fn(cfg, p_l, x, positions)
+            if layer_fn is moe.moe_layer:      # (kv, its lb_loss term)
+                kv = kv[0]
+            parts = [[] for _ in kv] if parts is None else parts
+            for acc, t in zip(parts, kv):
+                acc.append(t)
+        names = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+        out = {}
+        for name, acc in zip(names, parts):
+            out[name], pos = _fill_ring(torch.stack(acc), T)
+            acc.clear()
+        if not cfg.use_mla:
+            out["pos"] = pos
+        return out
+
+    if cfg.family == "dense":
+        new_cache = run(dense_block_apply, params["blocks"])
+    else:
+        new_cache = {}
+        if cfg.first_k_dense:
+            new_cache["dense"] = run(moe.dense_layer,
+                                     params["blocks"]["dense"])
+        new_cache["moe"] = run(moe.moe_layer, params["blocks"]["moe"])
     x = norm(cfg, x, params["final_norm"])
     logits = unembed(cfg, params, x[:, -1:])
-    return logits, {"k": ck, "v": cv, "pos": pos}
+    return logits, new_cache

@@ -1,0 +1,411 @@
+"""Mixture-of-Experts blocks (granite-moe, deepseek-v3) and MLA attention.
+
+Counterpart of ``repro.models.moe``.  Token → expert dispatch reuses the
+port's PI query routing, ``core.distributed.dispatch_plan``: tokens are
+the queries, experts the key-range shards, and the capacity factor bounds
+each expert's send buffer, as the paper's sorted, capacity-bounded
+routing bounds a shard's.
+
+Three choices hold the port to the reference's numbers:
+
+* the router's top k is a stable descending sort, which puts the lower
+  expert id first among equal scores, as ``jax.lax.top_k`` does
+  (``torch.topk`` does not, and bfloat16 scores tie often);
+* the send buffer has one spare row past its end that every dropped copy
+  lands on and that is cut off, so a dropped copy vanishes as under the
+  reference's ``mode="drop"``;
+* the combine adds each token's contributions one at a time from zero, in
+  ascending expert id (the order of the sorted dispatch, in which the
+  reference's scatter-add visits them), in the activation dtype.  It
+  gathers by permutations and slots that are each taken once, so it adds
+  nothing with atomics and gives the same bits on every run; so does its
+  backward.
+
+The expert products are batched matrix products (cuBLAS on the card), as
+the reference computes them with ``jnp.einsum`` outside any Pallas
+kernel: this module launches no kernel of its own.  MLA's full-sequence
+attention takes the plain chunked ``transformer.flash_attention`` (its
+value head dim differs from its query head dim, which the flash kernel
+does not take), as the reference takes its pure-JAX one.  Decode writes
+the compressed cache in place at the absolute position, as the dense
+family's decode writes its own.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.distributed import dispatch_plan
+from repro_torch.kernels.flash_attention import weak_scalar
+from repro_torch.models.base import Layout, ModelConfig, ParamDef, tree_map
+from repro_torch.models.transformer import (_scan_blocks, attn_apply,
+                                            attn_layout, embed_tokens,
+                                            flash_attention, mlp_apply,
+                                            mlp_layout, norm, rope,
+                                            unbind_layers, unembed)
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_layout(cfg: ModelConfig, prefix: str, layers: int) -> Layout:
+    d = cfg.d_model
+    H = cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    L, ll = (layers,), ("layers",)
+    return {
+        f"{prefix}/wq_a": ParamDef(L + (d, qr), ll + ("fsdp", None)),
+        f"{prefix}/q_a_norm": ParamDef(L + (qr,), ll + (None,), "zeros"),
+        f"{prefix}/wq_b": ParamDef(L + (qr, H * (dn + dr)),
+                                   ll + (None, "heads")),
+        f"{prefix}/wkv_a": ParamDef(L + (d, kvr + dr), ll + ("fsdp", None)),
+        f"{prefix}/kv_a_norm": ParamDef(L + (kvr,), ll + (None,), "zeros"),
+        f"{prefix}/wkv_b": ParamDef(L + (kvr, H * (dn + dv)),
+                                    ll + (None, "heads")),
+        f"{prefix}/wo": ParamDef(L + (H * dv, d), ll + ("heads", "fsdp")),
+    }
+
+
+def mla_apply(cfg: ModelConfig, p: Dict, x, positions, cache=None):
+    """DeepSeek MLA.  The cache holds the *compressed* c_kv and the shared
+    k_rope, (kv_lora + rope_dim) a token instead of 2·H·hd, expanded per
+    head on read.  ``cache``: None, or a dict with c_kv (B,T,kvr), k_rope
+    (B,T,1,dr) and idx (an int), written in place at [idx, idx + S)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+
+    cq = norm(cfg, x @ p["wq_a"], p["q_a_norm"])
+    q = (cq @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"]                       # (B,S,kvr+dr)
+    c_kv = norm(cfg, kv_a[..., :kvr], p["kv_a_norm"])
+    k_rope = rope(kv_a[..., kvr:][..., None, :], positions,
+                  cfg.rope_theta)               # (B,S,1,dr) shared head
+
+    if cache is not None:
+        idx = int(cache["idx"])
+        cache["c_kv"][:, idx:idx + S] = c_kv
+        cache["k_rope"][:, idx:idx + S] = k_rope
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    kv = (c_kv @ p["wkv_b"]).reshape(B, -1, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], dr)], -1)
+    qq = torch.cat([q_nope, q_rope], -1)
+    if cache is None:
+        o = flash_attention(qq, k, v, causal=True)
+    else:
+        T = k.shape[1]
+        qq = qq / weak_scalar(math.sqrt(dn + dr), qq.dtype)
+        s = torch.einsum("bqhd,bkhd->bhqk", qq.float(), k.float())
+        kpos = torch.arange(T, device=x.device)
+        qpos = idx + torch.arange(S, device=x.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        s = torch.where(mask[None, None], s, -1e30)
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bhqk,bkhd->bhqd", w.float(), v.float()) \
+            .transpose(1, 2).to(x.dtype)
+    return o.reshape(B, S, H * dv) @ p["wo"], (c_kv, k_rope)
+
+
+# ---------------------------------------------------------------------------
+# expert layer — PI-style sorted dispatch
+# ---------------------------------------------------------------------------
+
+def experts_layout(cfg: ModelConfig, prefix: str, layers: int) -> Layout:
+    d, fe = cfg.d_model, cfg.d_ff_expert
+    Ep = cfg.experts_padded       # padding experts take no tokens
+    L, ll = (layers,), ("layers",)
+    out = {
+        f"{prefix}/router": ParamDef(L + (d, cfg.n_experts),
+                                     ll + (None, None)),
+        f"{prefix}/w_gate": ParamDef(L + (Ep, d, fe),
+                                     ll + ("experts", "fsdp", "expert_mlp")),
+        f"{prefix}/w_up": ParamDef(L + (Ep, d, fe),
+                                   ll + ("experts", "fsdp", "expert_mlp")),
+        f"{prefix}/w_down": ParamDef(L + (Ep, fe, d),
+                                     ll + ("experts", "expert_mlp", "fsdp")),
+    }
+    if cfg.n_shared_experts:
+        out.update(mlp_layout(cfg, f"{prefix}/shared", layers,
+                              width=cfg.d_ff_expert * cfg.n_shared_experts))
+    return out
+
+
+def _route(cfg: ModelConfig, p: Dict, xf):
+    """Router scores → (gate_vals, expert_ids, lb_loss), (N, K) each and a
+    float32 scalar.  The top k by a stable descending sort: among equal
+    scores the lower expert id comes first, as from ``jax.lax.top_k``."""
+    E, K = cfg.n_experts, cfg.top_k
+    scores = (xf @ p["router"]).float()                      # (N, E)
+    probs = torch.sigmoid(scores) if cfg.family == "mla_moe" \
+        else torch.softmax(scores, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_ids = vals[:, :K], ids[:, :K]
+    if cfg.family == "mla_moe":                              # deepseek norm
+        gate_vals = gate_vals / torch.clamp_min(
+            gate_vals.sum(-1, keepdim=True), 1e-9)
+    me = torch.softmax(scores, dim=-1).mean(dim=0)
+    # the mean of the one-hot sums: integer counts (no host sync, unlike
+    # bincount on the card) over N
+    flat = expert_ids.reshape(-1)
+    ce = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float() / xf.shape[0]
+    lb_loss = E * torch.sum(me * ce) / K
+    return gate_vals, expert_ids, lb_loss
+
+
+def capacity(cfg: ModelConfig, n_tokens: int, capacity_factor=None) -> int:
+    """An expert's buffer rows for ``n_tokens`` tokens: the reference's
+    ``max(8, min(ceil(N K / E cf), N))`` with E the real experts."""
+    cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity
+    cap = int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cf))
+    return max(8, min(cap, n_tokens))
+
+
+# the dropped copies of each moe_apply inside ``record_drops``
+_drop_log: list | None = None
+
+
+@contextlib.contextmanager
+def record_drops():
+    """Within the block, every ``moe_apply`` appends the copies that its
+    capacity dropped to the list this yields, as an int32 scalar on its
+    device (no host sync)."""
+    global _drop_log
+    outer, _drop_log = _drop_log, []
+    try:
+        yield _drop_log
+    finally:
+        _drop_log = outer
+
+
+def moe_apply(cfg: ModelConfig, p: Dict, x, capacity_factor=None):
+    """Top-k routed experts by sorted, capacity-bounded dispatch.
+
+    The N = B·S tokens are copied top_k times, the copies sorted by
+    expert (``dispatch_plan``), the first ``cap`` of each expert placed in
+    its rows of an (Ep, cap, d) buffer, run as one batched product per
+    projection, and combined with the router gates.  A copy past its
+    expert's capacity is dropped (the residual carries the token).
+    Returns (out (B,S,d), lb_loss).
+
+    Each phase runs inside a ``torch.profiler.record_function`` span
+    (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``),
+    by which a profile splits the layer's device time.
+    """
+    B, S, d = x.shape
+    K, Ep = cfg.top_k, cfg.experts_padded
+    N = B * S
+    xf = x.reshape(N, d)
+    with record_function("moe.route"):
+        gate_vals, expert_ids, lb_loss = _route(cfg, p, xf)
+    cap = capacity(cfg, N, capacity_factor)
+    with record_function("moe.dispatch"):
+        order, slot, keep, n_dropped = dispatch_plan(
+            expert_ids.reshape(-1).to(torch.int32), Ep, cap)
+        if _drop_log is not None:
+            _drop_log.append(n_dropped)
+        # each copy's buffer row in (token, k) order: order is a
+        # permutation, so this scatter writes every element once
+        slot_of = torch.empty_like(slot).scatter_(0, order.long(), slot) \
+            .long()
+        # copy i of token i // K into its row; dropped copies all land on
+        # the spare row Ep * cap, which is cut off.  The expand's backward
+        # sums a token's K row gradients, which index_copy's backward
+        # gathers.
+        copies = xf[:, None].expand(N, K, d).reshape(N * K, d)
+        xbuf = xf.new_zeros((Ep * cap + 1, d)).index_copy(0, slot_of, copies)
+        xbuf = xbuf[:-1].view(Ep, cap, d)
+    with record_function("moe.experts"):
+        h = torch.bmm(xbuf, p["w_gate"])
+        u = torch.bmm(xbuf, p["w_up"])
+        h = F.silu(h) * u
+        y = torch.bmm(h, p["w_down"]).reshape(Ep * cap, d)
+    with record_function("moe.combine"):
+        out = combine(y, slot_of.view(N, K), expert_ids, gate_vals)
+    out = out.reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(cfg, p["shared"], x)
+    return out, lb_loss
+
+
+def combine(y, rows, expert_ids, gate_vals):
+    """The experts' output rows back to their tokens: (N, d) in y's dtype.
+
+    ``rows`` (N, K) is each copy's row of ``y`` (Ep·cap rows; Ep·cap for
+    a dropped copy, which reads a zero row past the end).  A token's K
+    rows, scaled by their gates cast to y's dtype, are added one at a
+    time from zero in ascending expert id: on the CPU that reproduces the
+    reference's ``zeros.at[tok_of].add(contrib)`` bit for bit, in
+    bfloat16 and float32, where the router's rank order does not.
+    """
+    N, K = rows.shape
+    d = y.shape[-1]
+    _, kth = torch.sort(expert_ids, dim=-1)
+    gates = gate_vals.gather(1, kth).to(y.dtype)
+    taken = _TakeRows.apply(torch.cat([y, y.new_zeros((1, d))]),
+                            rows.gather(1, kth).reshape(-1))
+    contrib = taken.view(N, K, d) * gates[..., None]
+    out = y.new_zeros((N, d))
+    for c in contrib.unbind(1):      # one stack of the K gradients back
+        out = out + c
+    return out
+
+
+class _TakeRows(torch.autograd.Function):
+    """``src.index_select(0, idx)`` for an ``idx`` that takes every row at
+    most once but the last: its backward writes each gradient row back
+    with ``index_copy`` instead of accumulating (the backward of an
+    indexing gather sorts and adds: 1.28 s of a granite-moe train step of
+    4 x 2048 tokens on an H100).  The last row, which many may take, is a
+    zero row whose gradient the caller drops."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = src.shape[0]
+        return src.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.n_rows, grad.shape[-1]))
+        return out.index_copy_(0, idx, grad), None
+
+
+def moe_apply_shardmap(cfg: ModelConfig, p: Dict, x, capacity_factor=None):
+    """The reference's expert-parallel dispatch over a mesh axis.  On one
+    card there is no mesh, and the reference then runs ``moe_apply``
+    (ROADMAP A.4 ports the exchange across cards)."""
+    return moe_apply(cfg, p, x, capacity_factor)
+
+
+# ---------------------------------------------------------------------------
+# block assembly
+# ---------------------------------------------------------------------------
+
+def block_layout(cfg: ModelConfig) -> Layout:
+    """MoE families: optional leading dense layers + the MoE layers."""
+    out: Layout = {}
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    attn_fn = mla_layout if cfg.use_mla else attn_layout
+    if cfg.first_k_dense:
+        for k, v in attn_fn(cfg, "attn", cfg.first_k_dense).items():
+            out[f"dense/{k}"] = v
+        for k, v in mlp_layout(cfg, "mlp", cfg.first_k_dense,
+                               width=cfg.d_ff_dense or cfg.d_ff).items():
+            out[f"dense/{k}"] = v
+        out["dense/ln1"] = ParamDef((cfg.first_k_dense, cfg.d_model),
+                                    ("layers", None), "zeros")
+        out["dense/ln2"] = ParamDef((cfg.first_k_dense, cfg.d_model),
+                                    ("layers", None), "zeros")
+    for k, v in attn_fn(cfg, "attn", n_moe).items():
+        out[f"moe/{k}"] = v
+    for k, v in experts_layout(cfg, "experts", n_moe).items():
+        out[f"moe/{k}"] = v
+    out["moe/ln1"] = ParamDef((n_moe, cfg.d_model), ("layers", None), "zeros")
+    out["moe/ln2"] = ParamDef((n_moe, cfg.d_model), ("layers", None), "zeros")
+    return out
+
+
+def _attn(cfg, p, x, positions, cache=None):
+    if cfg.use_mla:
+        return mla_apply(cfg, p, x, positions, cache=cache)
+    return attn_apply(cfg, p, x, positions, cache=cache,
+                      window=cfg.sliding_window)
+
+
+def dense_layer(cfg, p, x, positions, cache=None):
+    h, kv = _attn(cfg, p["attn"], norm(cfg, x, p["ln1"]), positions, cache)
+    x = x + h
+    x = x + mlp_apply(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
+    return x, kv
+
+
+def moe_layer(cfg, p, x, positions, cache=None):
+    h, kv = _attn(cfg, p["attn"], norm(cfg, x, p["ln1"]), positions, cache)
+    x = x + h
+    fn = moe_apply if cfg.moe_impl == "gspmd" else moe_apply_shardmap
+    y, lb = fn(cfg, p["experts"], norm(cfg, x, p["ln2"]))
+    return x + y, (kv, lb)
+
+
+def forward_blocks(cfg: ModelConfig, params, x, positions):
+    """The leading dense layers, then the MoE layers, each under a
+    non-reentrant checkpoint with ``cfg.remat`` while autograd records (a
+    MoE layer's returns its hidden state and its load-balance term).
+    Returns (x, aux): aux holds ``lb_loss``, the mean over the MoE
+    layers, and ``h_final``, the last hidden state (MTP's input)."""
+    if cfg.first_k_dense:
+        x = _scan_blocks(cfg, params["dense"], x, positions, dense_layer)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def layer(p_l, h):
+        h, (_, lb_l) = moe_layer(cfg, p_l, h, positions)
+        return h, lb_l
+
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p_l in unbind_layers(params["moe"]):
+        x, lb_l = checkpoint(layer, p_l, x, use_reentrant=False) if remat \
+            else layer(p_l, x)
+        lb = lb + lb_l
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    return x, {"lb_loss": lb / max(n_moe, 1), "h_final": x}
+
+
+# ---------------------------------------------------------------------------
+# MTP (deepseek multi-token prediction, depth 1)
+# ---------------------------------------------------------------------------
+
+def mtp_layout(cfg: ModelConfig) -> Layout:
+    out: Layout = {"proj": ParamDef((2 * cfg.d_model, cfg.d_model),
+                                    ("fsdp", None))}
+    attn_fn = mla_layout if cfg.use_mla else attn_layout
+    for k, v in attn_fn(cfg, "attn", 1).items():
+        out[k] = v
+    for k, v in experts_layout(cfg, "experts", 1).items():
+        out[k] = v
+    out["ln1"] = ParamDef((1, cfg.d_model), ("layers", None), "zeros")
+    out["ln2"] = ParamDef((1, cfg.d_model), ("layers", None), "zeros")
+    out["ln_in"] = ParamDef((cfg.d_model,), (None,), "zeros")
+    return out
+
+
+def mtp_loss(cfg: ModelConfig, params, batch, h_final):
+    """Depth-1 MTP: predict token t+2 from (h_t, emb(t+1)).  ``params``
+    are the uncast ones, as the reference's ``loss_fn`` passes them: the
+    projection's product takes the wider of the two dtypes, as JAX
+    promotes it."""
+    p = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    # shift: combine hidden at t with embedding of token t+1
+    emb_next = embed_tokens(cfg, params, torch.roll(tokens, -1, dims=1))
+    h = torch.cat([norm(cfg, h_final, p["ln_in"]), emb_next], -1)
+    dt = torch.promote_types(h.dtype, p["proj"].dtype)
+    h = h.to(dt) @ p["proj"].to(dt)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    p_l = tree_map(lambda a: a[0], {k: p[k] for k in
+                                    ("attn", "experts", "ln1", "ln2")})
+    h, _ = moe_layer(cfg, p_l, h, positions)
+    logits = unembed(cfg, params, h)
+    lf = logits.float()
+    # labels for t+2 == labels shifted by one more step
+    lbl = torch.roll(labels, -1, dims=1)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, lbl[..., None].long())[..., 0]
+    mask = torch.ones_like(gold)
+    mask[:, -2:] = 0.0
+    return ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -144,9 +144,11 @@ def _opt_specs(opt_cfg, pspecs, opt_state):
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: optim.OptConfig,
-                     generator: torch.Generator):
-    """(params, optimizer state), drawn on the generator's device."""
-    params = init_params(model_layout(cfg), generator, cfg.param_dtype)
+                     generator: torch.Generator, device=None):
+    """(params, optimizer state) on ``device`` (default: the card), the
+    parameters drawn on the CPU ``generator`` (``init_params``)."""
+    params = init_params(model_layout(cfg), generator, cfg.param_dtype,
+                         device)
     return params, optim.init(opt_cfg, params)
 
 

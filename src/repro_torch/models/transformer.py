@@ -1,12 +1,15 @@
-"""Decoder-only transformer substrate, dense family: norms, RoPE, GQA
-attention, GLU MLPs, layer-looped assembly.
+"""Decoder-only transformer substrate: norms, RoPE, GQA attention, GLU
+MLPs, layer-looped assembly of the dense family, and the model entry
+points of every ported family (dense, and moe / mla_moe through
+``models.moe``).
 
 Counterpart of ``repro.models.transformer``.  Every tensor program is a
 function of (cfg, params, inputs), params being the nested dict of the
 JAX package's keys with layers stacked on the leading dim of every
-``blocks`` leaf; ``DenseLM`` wraps such a tree as an ``nn.Module``.  A
-layer is a view of the stacks, and the layer loop (``_scan_blocks``) is
-a Python loop where the JAX package scans.
+``blocks`` leaf (``blocks/dense`` and ``blocks/moe`` stacks for the moe
+families); ``DenseLM`` wraps such a tree as an ``nn.Module``.  A layer
+is a view of the stacks, and the layer loop (``_scan_blocks``) is a
+Python loop where the JAX package scans.
 
 The full-sequence attention of ``attn_apply`` (the prefill, ``forward``
 and training path) is ``kernels.flash_attention.FlashAttention``: its
@@ -46,15 +49,18 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_fwd_plain,
                                                  weak_scalar)
 from repro_torch.models.base import (Layout, ModelConfig, ParamDef,
-                                     cast_floats, torch_dtype, tree_map)
+                                     cast_floats, torch_dtype, tree_leaves,
+                                     tree_map)
 
-# the ROADMAP item that ports each family the port does not serve yet
-_FAMILY_ITEM = {"moe": "A10: models/moe.py", "mla_moe": "A10: models/moe.py",
-                "ssm": "A10: models/ssm.py", "griffin": "A10: models/griffin.py"}
+# the families the port serves, and the ROADMAP item that ports each
+# family it does not serve yet
+PORTED_FAMILIES = ("dense", "moe", "mla_moe")
+_FAMILY_ITEM = {"ssm": "A10: models/ssm.py",
+                "griffin": "A10: models/griffin.py"}
 
 
-def _check_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def _check_ported(cfg: ModelConfig):
+    if cfg.family not in PORTED_FAMILIES:
         if cfg.family in _FAMILY_ITEM:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP "
@@ -251,7 +257,9 @@ def dense_block_apply(cfg: ModelConfig, p: Dict, x, positions, cache=None):
 # ---------------------------------------------------------------------------
 
 def model_layout(cfg: ModelConfig) -> Layout:
-    _check_dense(cfg)
+    _check_ported(cfg)
+    from repro_torch.models import moe  # cycle-free: imported on use
+
     out: Layout = {
         "embed/tok": ParamDef((cfg.vocab_padded, cfg.d_model),
                               ("vocab", "embed_fsdp"), "small"),
@@ -260,8 +268,15 @@ def model_layout(cfg: ModelConfig) -> Layout:
     if not cfg.tie_embeddings:
         out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded),
                                   ("embed_fsdp", "vocab"))
-    for k, v in dense_block_layout(cfg, cfg.n_layers).items():
-        out[f"blocks/{k}"] = v
+    if cfg.family == "dense":
+        for k, v in dense_block_layout(cfg, cfg.n_layers).items():
+            out[f"blocks/{k}"] = v
+    else:
+        for k, v in moe.block_layout(cfg).items():
+            out[f"blocks/{k}"] = v
+        if cfg.mtp_depth:
+            for k, v in moe.mtp_layout(cfg).items():
+                out[f"mtp/{k}"] = v
     return out
 
 
@@ -306,12 +321,15 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def unbind_layers(block_params, n_layers: int):
+def unbind_layers(block_params):
     """Every layer's parameters at once (views, no copy), by
-    ``torch.unbind`` of each stack.  Their gradients are stacked once by
-    ``unbind``'s backward, where a slice a layer would scatter each
-    layer's into a zero tensor of the whole stack."""
+    ``torch.unbind`` of each stack: as many layers as the stack holds
+    (``blocks`` of the dense family, or its ``dense`` and ``moe`` stacks).
+    Their gradients are stacked once by ``unbind``'s backward, where a
+    slice a layer would scatter each layer's into a zero tensor of the
+    whole stack."""
     stacks = tree_map(lambda a: a.unbind(0), block_params)
+    n_layers = len(tree_leaves(stacks)[0])
     return [tree_map(lambda t: t[i], stacks) for i in range(n_layers)]
 
 
@@ -324,7 +342,7 @@ def _scan_blocks(cfg: ModelConfig, block_params, x, positions, apply_fn):
     def layer(p_l, h):
         return apply_fn(cfg, p_l, h, positions)[0]
 
-    for p_l in unbind_layers(block_params, cfg.n_layers):
+    for p_l in unbind_layers(block_params):
         x = checkpoint(layer, p_l, x, use_reentrant=False) if remat \
             else layer(p_l, x)
     return x
@@ -340,25 +358,37 @@ def _inputs(cfg: ModelConfig, params, tokens, embeds):
 
 
 def forward(cfg: ModelConfig, params, tokens=None, embeds=None):
-    """Full-sequence forward → (logits, aux) (the prefill-logits path)."""
-    _check_dense(cfg)
+    """Full-sequence forward → (logits, aux) (the prefill-logits path).
+    ``aux`` is empty for the dense family; the moe families' holds
+    ``lb_loss`` and ``h_final`` (``moe.forward_blocks``)."""
+    _check_ported(cfg)
+    from repro_torch.models import moe
+
     params = cast_floats(params, cfg.compute_dtype)
     x = _inputs(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = add_positions(cfg, x, positions)
-    x = _scan_blocks(cfg, params["blocks"], x, positions, dense_block_apply)
+    aux = {}
+    if cfg.family == "dense":
+        x = _scan_blocks(cfg, params["blocks"], x, positions,
+                         dense_block_apply)
+    else:
+        x, aux = moe.forward_blocks(cfg, params["blocks"], x, positions)
     x = norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params, x), {}
+    return unembed(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Causal LM loss of the dense family → (loss, metrics): the mean
-    over ``batch["mask"]`` (all ones when absent) of logsumexp − the gold
-    logit, in float32; ``metrics`` holds ``nll`` and ``loss`` (equal: the
-    dense family adds no auxiliary loss)."""
-    logits, _ = forward(cfg, params, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"))
+    """Causal LM loss → (loss, metrics): the mean over ``batch["mask"]``
+    (all ones when absent) of logsumexp − the gold logit, in float32
+    (``nll``); the moe families add 0.01 x the load-balance loss
+    (``lb_loss``) and, with ``mtp_depth`` and an ``mtp`` tree, 0.3 x the
+    MTP loss (``mtp_loss``); ``loss`` is the sum."""
+    from repro_torch.models import moe
+
+    logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"))
     labels = batch["labels"]
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
@@ -368,11 +398,21 @@ def loss_fn(cfg: ModelConfig, params, batch):
     if mask is None:
         mask = torch.ones_like(nll)
     loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    return loss, {"nll": loss, "loss": loss}
+    metrics = {"nll": loss}
+    if aux.get("lb_loss") is not None:
+        loss = loss + 0.01 * aux["lb_loss"]
+        metrics["lb_loss"] = aux["lb_loss"]
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_loss = moe.mtp_loss(cfg, params, batch, aux["h_final"])
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 class DenseLM(nn.Module):
-    """A dense model's parameters as an ``nn.Module``: one ``Parameter``
+    """A model's parameters as an ``nn.Module`` (the dense family, and
+    the moe families' trees alike): one ``Parameter``
     per leaf of the JAX tree (``blocks/attn/wq`` → (L, d, H·hd), …),
     registered under the path with ``/`` as ``__``.  ``tree()`` gives the
     nested dict the functions above take; ``forward`` is the module's
@@ -382,7 +422,7 @@ class DenseLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Dict):
         super().__init__()
-        _check_dense(cfg)
+        _check_ported(cfg)
         self.cfg = cfg
         self._paths = []
 

@@ -317,8 +317,10 @@ def test_flash_kernel_matches_plain_on_card():
     lengths below one key tile (1, 17) and ragged above it, a window
     crossing tile boundaries, a softcap, GQA with 7 query heads a KV head
     (56 over 8), MQA, no causal mask, and q, k, v views whose base is not
-    16-byte aligned; float32 (the FFMA kernel) at every head dim and on
-    every path it has: GQA (7 query heads a KV head), MQA with a window,
+    16-byte aligned, granite-moe's prefill (8 x 2048, 24 heads over 8 of
+    64); float32 (the FFMA kernel) at every head dim and on every path it
+    has: GQA (7 query heads a KV head; granite's 3 at (2, 512, 24, 8,
+    64)), MQA with a window,
     a softcap, S = 1000 at D = 16 and 256, S = 1 and 17, no causal mask
     and unaligned views.  One launch a call; unsupported head dims raise."""
     if not torch.cuda.is_available():
@@ -352,7 +354,9 @@ def test_flash_kernel_matches_plain_on_card():
              ((1, 1000, 56, 8, 128), bf, True, None, None),
              ((1, 333, 4, 4, 96), bf, False, None, None),
              ((1, 500, 8, 2, 96), bf, True, 200, None),
-             ((1, 260, 4, 1, 256), bf, True, 100, 30.0)]
+             ((1, 260, 4, 1, 256), bf, True, 100, 30.0),
+             ((8, 2048, 24, 8, 64), bf, True, None, None),
+             ((2, 512, 24, 8, 64), f32, True, None, None)]
     for (B, S, H, KV, D), dt, causal, window, cap in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dt)

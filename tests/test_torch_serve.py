@@ -1,8 +1,9 @@
 """The port's LM ``Server`` against the JAX package's, on the CPU.
 
 Both servers get one set of weights (the JAX ``init_params`` at
-``smoke(phi3-mini-3.8b)``, float32, carried leaf for leaf) and the same
-requests: the scenario of ``test_train_serve.py::test_server_end_to_end``
+``smoke()`` of phi3-mini-3.8b, and of granite-moe-3b-a800m and
+deepseek-v3-671b for the moe and mla_moe decode, float32, carried leaf
+for leaf) and the same requests: the scenario of ``test_train_serve.py::test_server_end_to_end``
 and the request set of ``examples/ycsb_serve.py``.  They must emit the
 same token streams (greedy argmax of float32 logits that agree to ~1e-6,
 so ties would have to fall within that; none does for these seeds), end
@@ -29,14 +30,14 @@ from repro_torch.models.base import params_from_numpy
 from repro_torch.pipeline import recover as trecover
 from torch_parity import assert_same_state
 
-ARCH = "phi3-mini-3.8b"
+ARCHS = ["phi3-mini-3.8b", "granite-moe-3b-a800m", "deepseek-v3-671b"]
 
 
-@pytest.fixture(scope="module")
-def weights():
+@pytest.fixture(scope="module", params=ARCHS)
+def weights(request):
     """(JAX config, port config, JAX params, the port's copy of them)."""
-    jcfg = jsmoke(jget_config(ARCH))
-    tcfg = smoke(get_config(ARCH))
+    jcfg = jsmoke(jget_config(request.param))
+    tcfg = smoke(get_config(request.param))
     jparams = jinit_params(jmodel_layout(jcfg), jax.random.key(0),
                            jcfg.param_dtype)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),

@@ -215,7 +215,8 @@ def test_abstract_train_state_matches_jax(kind):
         jax.tree.leaves(tos, is_leaf=is_axes)
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "musicgen-medium",
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b"])
 @pytest.mark.parametrize("shape", list(tsteps.SHAPES))
 def test_input_specs_match_jax(arch, shape):
     jcfg, tcfg = jget_config(arch), get_config(arch)
@@ -234,11 +235,75 @@ def test_input_specs_match_jax(arch, shape):
 
 def test_init_train_state_on_a_generator():
     cfg = smoke(get_config("phi3-mini-3.8b"))
-    a, sa = tsteps.init_train_state(cfg, OPT, torch.Generator().manual_seed(1))
-    b, _ = tsteps.init_train_state(cfg, OPT, torch.Generator().manual_seed(1))
+    a, sa = tsteps.init_train_state(cfg, OPT, torch.Generator().manual_seed(1),
+                                    "cpu")
+    b, _ = tsteps.init_train_state(cfg, OPT, torch.Generator().manual_seed(1),
+                                   "cpu")
     assert torch.equal(a["blocks"]["attn"]["wq"], b["blocks"]["attn"]["wq"])
     assert sorted(sa) == ["count", "m", "v"] and int(sa["count"]) == 0
     assert not sa["m"]["blocks"]["attn"]["wq"].any()
+
+
+def test_init_params_draw_order():
+    """``init_params``' draw order, pinned: the leaves in sorted name
+    order, a leaf of three or more dims one slab of its leading dim at a
+    time, a smaller one whole, each a float32 normal on the CPU generator
+    times its scale, cast to the dtype; zeros take no draw."""
+    from repro_torch.models.base import init_params
+    cfg = smoke(get_config("granite-moe-3b-a800m"))
+    layout = tsteps.model_layout(cfg)
+    got = init_params(layout, torch.Generator().manual_seed(5), "bfloat16",
+                      "cpu")
+    g = torch.Generator().manual_seed(5)
+    for name in sorted(layout):
+        d = layout[name]
+        leaf = got
+        for part in name.split("/"):
+            leaf = leaf[part]
+        assert leaf.dtype == torch.bfloat16 and leaf.shape == d.shape
+        if d.init == "zeros":
+            assert not leaf.any(), name
+            continue
+        scale = 0.02 if d.init == "small" else 1 / np.sqrt(d.shape[-2])
+        slabs = [d.shape[1:]] * d.shape[0] if len(d.shape) >= 3 \
+            else [d.shape]
+        want = torch.stack([torch.randn(s, generator=g) * scale
+                            for s in slabs]).reshape(d.shape)
+        assert torch.equal(leaf, want.to(torch.bfloat16)), name
+
+
+@pytest.mark.gpu
+def test_seeded_state_is_device_independent():
+    """One seed gives the same batch and the same weights on the CPU and
+    on the card: ``lm_batch`` (tokens and embeddings) and ``init_params``
+    / ``init_train_state`` draw on the CPU and copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the card's draw needs one")
+    cfg = tdata.DataConfig(vocab=49155, seq_len=64, global_batch=4, seed=7)
+    for c in (cfg, dataclasses.replace(cfg, input_mode="embeddings",
+                                       d_model=16)):
+        for step in (0, 3):
+            host = tdata.lm_batch(c, step, device="cpu")
+            card = tdata.lm_batch(c, step, device="cuda")
+            assert sorted(host) == sorted(card)
+            for k in host:
+                assert card[k].is_cuda and torch.equal(card[k].cpu(),
+                                                       host[k]), k
+    from repro_torch.models.base import init_params, tree_leaves
+    mcfg = smoke(get_config("granite-moe-3b-a800m"))
+    layout = tsteps.model_layout(mcfg)
+    for dt in ("float32", "bfloat16"):
+        host = init_params(layout, torch.Generator().manual_seed(2), dt, "cpu")
+        card = init_params(layout, torch.Generator().manual_seed(2), dt,
+                           "cuda")
+        for a, b in zip(tree_leaves(host), tree_leaves(card)):
+            assert b.is_cuda and torch.equal(b.cpu(), a)
+    hp, _ = tsteps.init_train_state(mcfg, OPT, torch.Generator().manual_seed(
+        4), "cpu")
+    cp, _ = tsteps.init_train_state(mcfg, OPT, torch.Generator().manual_seed(
+        4), "cuda")
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(tree_leaves(hp),
+                                                       tree_leaves(cp)))
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +419,26 @@ def test_straggler_watchdog(tmp_path):
                               "log": lambda *a: logged.append(a)})
     assert 8 in res.straggler_steps
     assert [a[0] for a in logged] == list(range(10))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_train_loop_moe_families(tmp_path, arch):
+    """``train()`` on a moe and an mla_moe config: finite losses, and a
+    run resumed after an injected failure takes up an uninterrupted run's
+    losses exactly."""
+    cfg = smoke(get_config(arch))
+    loop = ttrain.TrainLoopConfig(steps=6, ckpt_every=3,
+                                  ckpt_dir=str(tmp_path / "run"),
+                                  fail_at_step=4, sync_ckpt=True)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        ttrain.train(cfg, OPT, loop, dcfg(cfg), device="cpu")
+    res = ttrain.train(cfg, OPT, dataclasses.replace(loop, fail_at_step=None),
+                       dcfg(cfg), device="cpu")
+    clean = ttrain.train(cfg, OPT, dataclasses.replace(
+        loop, fail_at_step=None, ckpt_dir=str(tmp_path / "clean")),
+        dcfg(cfg), device="cpu")
+    assert res.restored_from == 3 and res.losses == clean.losses[4:]
+    assert all(np.isfinite(clean.losses))
 
 
 def test_train_mesh_one_device_and_more(tmp_path):
