@@ -96,7 +96,11 @@ fence-routed shards, windows of 8192 operations.  Phases:
    printed; device time and TFLOP/s of the tensor-core kernel at phi3's
    shape and of the float32 kernel at (2, 512, 32, 32, 96), each against
    its bound, the plain version and ``F.scaled_dot_product_attention`` in
-   its dtype (timed only);
+   its dtype (timed only); recurrentgemma's shapes in bfloat16, (8,
+   2048, 16, 1, 256) with a window of 2048 (timed: the window does not
+   bind at 2048, so SDPA's causal mask computes the same function) and
+   (2, 4096, 16, 1, 256) where it binds, and in float32 (2, 256, 16, 1,
+   256);
 9. ``[lm]``: phi3-mini-3.8b at its full width (32 layers, d 3072, 32
    heads of 96, d_ff 8192, vocab 32064), weights from ``init_params``
    on a CPU generator seeded with ``SEED`` (the same weights as on the
@@ -129,7 +133,8 @@ fence-routed shards, windows of 8192 operations.  Phases:
    by phase and kernel class; (c) one AdamW step of phi3's widths at 2
    layers in float32 on the card and on the CPU, from the same weights
    and batch of 1 x 256 tokens: loss, every gradient leaf and every
-   updated parameter within ``CARD_CPU_TOL``; (d)
+   parameter of the card's step from the CPU's gradients within
+   ``CARD_CPU_TOL``; (d)
    ``launch/train.py::train`` at 2 layers with bfloat16 moments under
    ``build/train_ckpt`` (removed at the end): a slow step flagged by the
    watchdog, a failure injected after a checkpoint, the resumed run's
@@ -154,14 +159,43 @@ fence-routed shards, windows of 8192 operations.  Phases:
    dense first layer, a shared expert, MTP) in float32 on the card and
    on the CPU: ``forward``, ``prefill``, three decode steps, ``loss_fn``
    with every gradient and one AdamW step within ``CARD_CPU_TOL``;
-15. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+15. ``[lm:ssm]``, ``[serve:lm:ssm]`` and ``[train:ssm]``: 9, 10 and 11
+   (b), (c) for mamba2-2.7b at its published widths and depth (64
+   layers, d 2560, state 128, 80 heads of 64, conv 4, chunk 128, vocab
+   50280 padded to 50432, tied; 2,702,968,320 parameters by its layout):
+   no attention, so no flash launch; the float32 prefill of 2 x 200
+   tokens (no multiple of the chunk: the prefill pads with dt = 0)
+   against 200 decode steps in its last logits, its float32 ``ssm``
+   states and its ``conv`` tails; the prefill's device time by span
+   (``in_proj``, ``conv``, the SSD's intra-chunk products, the loop over
+   chunks, ``out_proj``); every train loss finite, the last below the
+   first;
+16. ``[lm:griffin]``, ``[serve:lm:griffin]`` and ``[train:griffin]``:
+   recurrentgemma-9b at its published widths and depth (38 layers: 12
+   groups of (rec, rec, attn) and a tail of 2 rec, d 4096, 16 heads of
+   256 over 1 KV head, window 2048, lru 4096, GeGLU d_ff 12288, vocab
+   256000, tied and scaled embeddings; 8,524,206,080 parameters): the
+   8 x 2048 prefill (the flash kernel once an attention layer, 12), its
+   ring cache quantized to int8 and back by ``models/kvquant.py`` within
+   ``tests/test_kvquant.py``'s bound, with ``cache_bytes`` equal to the
+   tensors' bytes, 64 decode steps, a prefill of 2 x 4096 (the window
+   binds; the ring keeps the last 2048 positions) and a decode step onto
+   the wrapped ring, the float32 prefill of 2 x 256 against 256 decode
+   steps; a 5-layer smoke config (a group and a tail of 2) card vs CPU
+   as 14 (ii) does, at 2 x 40 tokens (the ring of 16 wraps); the server;
+   train steps as 11 (b) at a cut depth of 3 x ``GRIFFIN_TRAIN_GROUPS``
+   + 2 = 5 layers (the full depth's float32 state needs ~102 GB; 8
+   layers peaked at 72 GiB), from the first group and the tail of the
+   float32 draw;
+17. check that each path launched its kernels: ``pi_probe``, ``pi_search``
    and ``bitonic_sort`` on the point path, ``pi_probe`` and
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
-   window on the serving, the durable, the overload and the LM serving
+   window on the serving, the durable, the overload and every LM serving
    path, each of them S = 8 times a window (``pi_range`` S times a
    range-bearing window) on the sharded path, ``flash_attention_fwd``
-   once a layer of every GQA prefill and forward and twice a layer of
-   every train step (MLA takes the plain attention, no kernel).
+   once an attention layer of every GQA prefill and forward (griffin's
+   12 of 38) and twice one of every train step (MLA takes the plain
+   attention, mamba2 has none).  The script prints its own time.
 
 ``--profile N`` adds device time by kernel over N point windows, N
 serving windows and N sharded windows, and one train step's by phase.  The line before the last is a JSON object with one
@@ -220,14 +254,37 @@ CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
 LM_ARCH = "phi3-mini-3.8b"
 MOE_ARCH = "granite-moe-3b-a800m"
 MLA_ARCH = "deepseek-v3-671b"
+SSM_ARCH = "mamba2-2.7b"
+GRIFFIN_ARCH = "recurrentgemma-9b"
 # the full-width models' parameters by their layouts: phi3's vocab padded
-# to 32256; granite's vocab padded to 49408 and its 48 padded experts
-LM_PARAMS = {LM_ARCH: 3_822_259_200, MOE_ARCH: 3_903_161_856}
+# to 32256; granite's vocab padded to 49408 and its 48 padded experts;
+# mamba2's vocab padded to 50432; recurrentgemma's 12 groups and 2 tail
+# layers
+LM_PARAMS = {LM_ARCH: 3_822_259_200, MOE_ARCH: 3_903_161_856,
+             SSM_ARCH: 2_702_968_320, GRIFFIN_ARCH: 8_524_206_080}
 MLA_LAYER_PARAMS = 187_107_328   # [lm:mla] (i): one MLA layer of deepseek
 MLA_B, MLA_S = 2, 512            # ... its prefill
 MLA_DECODE = 16                  # ... and decode steps over its cache
-# the spans of moe_apply by which a profile splits a MoE layer's time
+# the spans by which a profile splits a layer's time: moe_apply's, the
+# mamba2 block's (ssm.intra: the intra-chunk products and the chunk
+# states; ssm.inter: the loop over chunks and the off-diagonal product),
+# griffin's recurrent block and, within it, its LRU scan
 MOE_SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+SSM_SPANS = ("ssm.in_proj", "ssm.conv", "ssm.intra", "ssm.inter",
+             "ssm.out_proj")
+GRIFFIN_SPANS = ("griffin.rec", "griffin.lru")
+ALL_SPANS = MOE_SPANS + SSM_SPANS + GRIFFIN_SPANS
+SSM_CHECK_S = 200                # mamba2's float32 check: not a chunk multiple
+GRIFFIN_LONG_S = 4096            # [lm:griffin]: 2 x 4096, the ring wraps
+SMOKE_S = {MLA_ARCH: 64, GRIFFIN_ARCH: 40}   # the smoke configs card vs CPU
+GRIFFIN_SMOKE_LAYERS = 5         # recurrentgemma's smoke: a group + 2 tail
+# [train:griffin]: 3 g + 2 layers.  Full depth needs ~102 GB of float32
+# parameters and gradients and bfloat16 moments; g = 2 (8 layers, 2.63 B
+# parameters) peaked at 72.053 GiB on the card, over the ~70 GiB aimed
+# at (the step's float32 logits of 4 x 2048 x 256000 and their gradient
+# take ~25 GB), so g = 1: 5 layers, 2.04 B parameters, one group and the
+# tail
+GRIFFIN_TRAIN_GROUPS = 1
 PREFILL_B, PREFILL_S = 8, 2048   # the [lm] prefill: 8 prompts of 2048
 DECODE_STEPS = 64                # greedy steps from the prefill's cache
 CHECK_B, CHECK_S = 2, 256        # the float32 prefill-vs-decode check
@@ -247,8 +304,14 @@ TRAIN_DIR = os.path.join(ROOT, "build", "train_ckpt")
 # |value|, updated parameters in units of the learning rate
 # (measured on the card: 0, 1.17e-6, 0.0497 lr); a parameter may
 # also round to the next float32 either side (at lr 1.5e-7 one ulp of the
-# largest weights is 0.05 lr), so its bar adds one ulp
+# largest weights is 0.05 lr), so its bar adds one ulp.  AdamW's first
+# step moves a parameter by lr g / (|g| + eps) of its clipped gradient g:
+# where both sides' clipped gradients lie within NEAR_ZERO_EPS eps of 0,
+# two gradients within the gradient bar may step up to 2 lr apart
+# (mamba2-2.7b: 9.24e-9 against 5.25e-8 in one in_proj element, unclipped,
+# 1.18 of the bar), so those elements are held to 2 lr and one ulp.
 CARD_CPU_TOL = {"loss": 1e-6, "grad": 1e-5, "param": 0.1}
+NEAR_ZERO_EPS = 2
 # (d): the resumed loss against the clean run's, relative; the embedding's
 # backward adds with atomics, so the two runs' weights differ in the last
 # bits (measured: 7.7e-5)
@@ -261,14 +324,19 @@ DRIVER_TOL = 1e-3
 # warmup steps, the loss rose back above 10 within 4 steps.
 TRAIN_OPT_ARGS = dict(moment_dtype="bfloat16", warmup_steps=2000)
 # [kernels:flash]: (name, (B, S, H, KV, D), dtype, options); "phi3" is
-# phi3's prefill, the one timed with the bfloat16 kernel, "float32" the
-# case timed with the float32 kernel, and the float32 cases after it hold
-# that kernel to its bar on every path it has
+# phi3's prefill, the one timed with the bfloat16 kernel (and
+# recurrentgemma's prefill beside it), "float32" the case timed with the
+# float32 kernel, and the float32 cases after it hold that kernel to its
+# bar on every path it has
 _BF = torch.bfloat16
 _F32 = torch.float32
 FLASH_CASES = [
     ("phi3", (PREFILL_B, PREFILL_S, 32, 32, 96), _BF, {}),
     ("granite-moe prefill", (PREFILL_B, PREFILL_S, 24, 8, 64), _BF, {}),
+    ("recurrentgemma prefill", (PREFILL_B, PREFILL_S, 16, 1, 256), _BF,
+     dict(window=2048)),
+    ("recurrentgemma 2 x 4096", (2, GRIFFIN_LONG_S, 16, 1, 256), _BF,
+     dict(window=2048)),
     ("yi-34b GQA", (1, 1024, 56, 8, 128), _BF, {}),
     ("MQA window 64", (2, 1024, 16, 1, 128), _BF, dict(window=64)),
     ("softcap 50", (2, 1024, 32, 32, 96), _BF, dict(softcap=50.0)),
@@ -282,6 +350,8 @@ FLASH_CASES = [
     ("unaligned views", (2, 300, 32, 32, 96), _BF, dict(unaligned=True)),
     ("float32", (2, 512, 32, 32, 96), _F32, {}),
     ("float32 granite-moe", (2, 512, 24, 8, 64), _F32, {}),
+    ("float32 recurrentgemma", (CHECK_B, CHECK_S, 16, 1, 256), _F32,
+     dict(window=2048)),
     ("float32 yi-34b GQA", (1, 1024, 56, 8, 128), _F32, {}),
     ("float32 MQA window 64", (2, 1024, 16, 1, 128), _F32, dict(window=64)),
     ("float32 softcap 50", (2, 1024, 32, 32, 96), _F32, dict(softcap=50.0)),
@@ -321,14 +391,34 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_events(fn, iters: int, operators: bool = True, spans=None):
+def busy_us(events, kernel: str = "") -> float:
+    """The time the card spends in the device events (kernels, copies)
+    among ``events`` whose name holds ``kernel``: the union of their
+    intervals, so that grids that overlap (the bfloat16 flash kernel's
+    two, one a programmatic dependent of the other) count once."""
+    from torch.autograd import DeviceType
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events
+                       if e.device_type == DeviceType.CUDA
+                       and e.name not in ALL_SPANS and kernel in e.name):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def device_events(fn, iters: int, operators: bool = True, spans=None,
+                  busy=None):
     """The device-side events (kernels, copies) of ``iters`` calls of
     ``fn``, from ``torch.profiler``, and the CPU-side operators (none
     unless ``operators``):
     ([(name, self device us, count)], [(operator, self device us, count)]).
     ``spans``: a dict of ``record_function`` names, whose values become
     the device us of the kernels within each (``operators`` on); the
-    spans' own device-side ranges are left out of the events."""
+    spans' own device-side ranges are left out of the events.  ``busy``:
+    a dict of kernel-name parts, whose values become ``busy_us`` of the
+    events whose name holds each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -340,27 +430,37 @@ def device_events(fn, iters: int, operators: bool = True, spans=None):
         torch.cuda.synchronize()
     dev, ops = [], []
     for e in prof.key_averages():
-        if e.key in MOE_SPANS:
-            if spans is not None and e.device_type != DeviceType.CUDA:
+        if e.key in ALL_SPANS:
+            if spans is not None and e.key in spans and \
+                    e.device_type != DeviceType.CUDA:
                 spans[e.key] = e.device_time_total
             continue
         row = (e.key, e.self_device_time_total, e.count)
         (dev if e.device_type == DeviceType.CUDA else ops).append(row)
+    for kernel in busy or ():
+        busy[kernel] = busy_us(prof.events(), kernel)
     return dev, ops
 
 
-def device_ms(fn, iters: int, kernel: str | None = None) -> float:
-    """Mean device time per call of ``fn``: of the kernels whose name holds
-    ``kernel``, or of all its device work.  Free of the host's launch
-    overhead, which the CUDA-event time of a launch loop includes; that
-    time is the fallback where the profiler sees no device activity."""
-    dev, _ = device_events(fn, iters, operators=False)
-    us = [t for name, t, _ in dev if kernel is None or kernel in name]
-    if not us:
+def device_ms(fn, iters: int, kernel: str = "", grids=None) -> float:
+    """Mean device time per call of ``fn``: the time the card spends in
+    the kernels whose name holds ``kernel`` (in all its device work
+    without one), from the first grid's start to the last grid's end
+    where grids overlap.  Free of the host's launch overhead, which the
+    CUDA-event time of a launch loop includes; that time is the fallback
+    where the profiler sees no device activity.  ``grids``: a dict that
+    takes each such kernel's own time per call, by its short name (its
+    template arguments, not its parameters), from the same calls."""
+    busy = {kernel: 0.0}
+    dev, _ = device_events(fn, iters, operators=False, busy=busy)
+    if not busy[kernel]:
         log(f"[timing] the profiler saw no device time for "
             f"{kernel or 'the call'}: CUDA-event time of the launch loop")
         return time_ms(fn, iters)
-    return sum(us) / iters / 1e3
+    if grids is not None:
+        grids.update({name.split("(")[0].removeprefix("void "):
+                      t / iters / 1e3 for name, t, _ in dev if kernel in name})
+    return busy[kernel] / iters / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -2044,9 +2144,12 @@ def _flash_inputs(g, B, S, H, KV, D, dt, unaligned=False):
 def check_flash(iters):
     """``[kernels:flash]``: the kernel against its plain version on the
     card at ``FLASH_CASES``; device times of the bfloat16 kernel at phi3's
-    prefill shape and of the float32 kernel at the float32 case, beside
+    and recurrentgemma's prefill shapes (the window of 2048 does not bind
+    at 2048 tokens) and of the float32 kernel at the float32 case, beside
     their plain version, ``F.scaled_dot_product_attention`` on the same
-    tensors and their bounds."""
+    tensors (causal) and their bounds.  A call's time runs from its first
+    grid's start to its last grid's end (``device_ms``); each grid's own
+    time is printed beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
@@ -2065,15 +2168,17 @@ def check_flash(iters):
         log(f"[kernels:flash] {name} {(B, S, H, KV, D)} {dt}: max_abs_err "
             f"{e:.6g} (tolerance {atol:g} + {rtol:g} |plain|; the largest "
             f"error is {share:.4g} of its element's limit)")
-        if name in ("phi3", "float32"):
+        if name in ("phi3", "float32", "recurrentgemma prefill"):
             f32 = dt == torch.float32
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            grids = {}
             timed = dict(
-                ms=device_ms(lambda: FA.flash_attention_fwd(q, k, v), iters,
-                             "flash_f32_kernel" if f32
-                             else "flash_fwd_kernel"),
+                ms=device_ms(lambda: FA.flash_attention_fwd(q, k, v, **opts),
+                             iters, "flash_f32_kernel" if f32
+                             else "flash_fwd_kernel", grids),
+                grid_ms=grids,
                 plain_ms=device_ms(lambda: FA.flash_attention_fwd_plain(
-                    q, k, v), max(1, iters // 10)),
+                    q, k, v, **opts), max(1, iters // 10)),
                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), iters),
                 bound=flash_bound(B, S, H, KV, D, itemsize=q.element_size(),
@@ -2081,17 +2186,19 @@ def check_flash(iters):
                                   else BF16_OPS_PER_S))
             ms, bnd = timed["ms"], timed["bound"]
             log(f"[kernels:flash] {name} {(B, S, H, KV, D)} {dt}: kernel "
-                f"{ms:.6f} ms ({bnd[2] / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{ms:.6f} ms a call, its grids' union "
+                f"({bnd[2] / ms / 1e9:.1f} TFLOP/s), plain "
                 f"{timed['plain_ms']:.6f} ms, scaled_dot_product_attention "
                 f"{timed['library_ms']:.6f} ms; bound {bnd[0]:.6f} ms "
                 f"({bnd[1]}, {bnd[2]:.4g} operations at "
                 f"{(SCALAR_OPS_PER_S if f32 else BF16_OPS_PER_S) / 1e12:g} "
                 f"TFLOP/s); the kernel at {100 * bnd[0] / ms:.2f}% of its "
-                f"bound")
+                f"bound; each grid's own time: " + ", ".join(
+                    f"{g} {t:.6f} ms" for g, t in timed["grid_ms"].items()))
             if name == "phi3":
-                out = timed
+                out.update(timed)
             else:
-                out["f32"] = timed
+                out["f32" if f32 else "griffin"] = timed
         del q, k, v, got, want
     out["err"] = err
     return out
@@ -2099,16 +2206,20 @@ def check_flash(iters):
 
 def time_split(fn, tag, spans=()):
     """Device time of one ``fn()`` by kernel class, from the profiler (the
-    flash kernel, the matrix products of cuBLAS, the rest), and of the
+    flash kernel, its grids' union, the matrix products of cuBLAS, the
+    rest; the total is the union of all its device events), and of the
     named ``spans`` (``record_function`` ranges, kernels within them),
     beside the host's time to enqueue it and its count of PyTorch
     operators."""
     span_us = dict.fromkeys(spans, 0.0)
-    dev, ops = device_events(fn, 1, spans=span_us)
-    total = sum(t for _, t, _ in dev) / 1e3
-    cls = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, t, _ in dev:
-        cls[kernel_class(name)] += t / 1e3
+    busy = dict.fromkeys(("", "flash_fwd_kernel", "flash_f32_kernel"), 0.0)
+    dev, ops = device_events(fn, 1, spans=span_us, busy=busy)
+    total = busy[""] / 1e3
+    cls = {"flash": (busy["flash_fwd_kernel"] + busy["flash_f32_kernel"])
+           / 1e3,
+           "matmul": sum(t for name, t, _ in dev
+                         if kernel_class(name) == "matmul") / 1e3}
+    cls["other"] = total - cls["flash"] - cls["matmul"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -2181,8 +2292,92 @@ def check_prefill_vs_decode(tag, cfg32, params32, tokens):
         assert np.isfinite(e) and e <= tol, (name, e, tol)
 
 
+LM_TAGS = {"dense": "[lm]", "moe": "[lm:moe]", "ssm": "[lm:ssm]",
+           "griffin": "[lm:griffin]"}
+
+
+def attn_layers(cfg) -> int:
+    """The layers that launch the flash kernel once in a prefill or a
+    ``forward`` (twice in a train step): every layer of the GQA
+    families, griffin's attention layers, none of mamba2's."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "griffin":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def layout_params(cfg) -> int:
+    """``cfg``'s parameter count by its layout (meta tensors, no storage)."""
+    from repro_torch.models import abstract_params, model_layout
+    from repro_torch.models.base import tree_leaves
+    return sum(x.numel() for x in tree_leaves(
+        abstract_params(model_layout(cfg), cfg.param_dtype)))
+
+
+def describe(cfg) -> str:
+    if cfg.family == "ssm":
+        nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+        body = (f"d {cfg.d_model}, state {cfg.ssm_state}, {nh} heads of "
+                f"{cfg.ssm_headdim}, conv {cfg.ssm_conv}, chunk "
+                f"{cfg.ssm_chunk}")
+    elif cfg.family == "mla_moe":
+        body = (f"d {cfg.d_model}, {cfg.n_heads} MLA heads (q_lora "
+                f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}), "
+                f"{cfg.first_k_dense} dense, {cfg.n_experts} experts top "
+                f"{cfg.top_k} + {cfg.n_shared_experts} shared, MTP "
+                f"{cfg.mtp_depth}")
+    else:
+        body = (f"d {cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv} KV) of "
+                f"{cfg.hd}, ")
+        if cfg.family == "moe":
+            body += (f"{cfg.n_experts} experts ({cfg.experts_padded} "
+                     f"padded), top {cfg.top_k}, of width {cfg.d_ff_expert}")
+        elif cfg.family == "griffin":
+            body += (f"window {cfg.sliding_window}, lru {cfg.lru_width}, "
+                     f"GeGLU d_ff {cfg.d_ff}; groups of (rec, rec, attn): "
+                     f"{attn_layers(cfg)}, tail layers: "
+                     f"{cfg.n_layers % cfg.attn_every}")
+        else:
+            body += f"d_ff {cfg.d_ff}"
+    return (f"{cfg.n_layers} layers, {body}, vocab {cfg.vocab} "
+            f"({cfg.vocab_padded} padded)")
+
+
+def ring_of(cfg, cache):
+    """The cache's attention ring (k, v, pos) whose positions decode
+    writes, or None (mamba2 keeps states only)."""
+    if cfg.family == "ssm":
+        return None
+    if cfg.family == "griffin":
+        return cache["g_attn"]
+    return cache["moe"] if cfg.family == "moe" else cache
+
+
+def check_cache_shapes(cfg, cache, B, T):
+    """The prefill cache's leaves have the reference's shapes for B
+    sequences of up to T positions (mamba2's state float32)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+        conv_dim = cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_state
+        assert cache["ssm"].shape == (L, B, nh, cfg.ssm_headdim,
+                                      cfg.ssm_state)
+        assert cache["ssm"].dtype == torch.float32
+        assert cache["conv"].shape == (L, B, cfg.ssm_conv - 1, conv_dim)
+        return
+    G, W = attn_layers(cfg), T
+    if cfg.family == "griffin":
+        W = min(T, cfg.sliding_window)
+        for t in range(L % cfg.attn_every):
+            assert cache[f"tail{t}"]["h"].shape == (1, B, cfg.lru_width)
+        assert cache["g_rec0"]["h"].dtype == torch.float32
+    assert ring_of(cfg, cache)["k"].shape == (G, B, W, cfg.n_kv, cfg.hd)
+
+
 def run_lm(arch):
-    """``[lm]`` (phi3-mini-3.8b) and ``[lm:moe]`` (granite-moe-3b-a800m):
+    """``[lm]`` (phi3-mini-3.8b), ``[lm:moe]`` (granite-moe-3b-a800m),
+    ``[lm:ssm]`` (mamba2-2.7b) and ``[lm:griffin]`` (recurrentgemma-9b):
     ``arch`` at full width, see the module docstring.  Returns the launch
     counts of its prefill, its float32 and compute-dtype weights and its
     numbers."""
@@ -2193,8 +2388,8 @@ def run_lm(arch):
     from repro_torch.models import moe
     from repro_torch.models.base import tree_leaves
     cfg = get_config(arch)
-    is_moe = cfg.family != "dense"
-    tag = "[lm:moe]" if is_moe else "[lm]"
+    is_moe = cfg.family == "moe"
+    tag = LM_TAGS[cfg.family]
     rng = np.random.default_rng(SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2204,22 +2399,18 @@ def run_lm(arch):
     params = cast_floats(params32, cfg.compute_dtype)   # once, up front
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    ff = (f"{cfg.n_experts} experts ({cfg.experts_padded} padded), top "
-          f"{cfg.top_k}, of width {cfg.d_ff_expert}" if is_moe
-          else f"d_ff {cfg.d_ff}")
-    log(f"{tag} {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads ({cfg.n_kv} KV) of {cfg.hd}, {ff}, vocab "
-        f"{cfg.vocab} ({cfg.vocab_padded} padded); {n_params} parameters "
-        f"drawn in float32 on the CPU generator and copied to the card in "
+    log(f"{tag} {arch}: {describe(cfg)}; {n_params} parameters drawn in "
+        f"float32 on the CPU generator and copied to the card in "
         f"{t_draw:.3f} s, cast to {cfg.compute_dtype} in "
         f"{time.perf_counter() - t0 - t_draw:.3f} s")
-    assert n_params == LM_PARAMS[arch], n_params
+    assert n_params == LM_PARAMS[arch] == layout_params(cfg), n_params
 
     def toks(b, s):
         return torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
                                 .astype(np.int32)).to(DEVICE)
 
-    prefill = make_prefill_step(cfg, total_len=PREFILL_S + DECODE_STEPS)
+    T = PREFILL_S + DECODE_STEPS
+    prefill = make_prefill_step(cfg, total_len=T)
     prefill(params, {"tokens": toks(1, 128)})          # warm-up
     tokens = toks(PREFILL_B, PREFILL_S)
     torch.cuda.synchronize()
@@ -2230,12 +2421,10 @@ def run_lm(arch):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     launches = launch_counts()
-    assert launches["flash_attention_fwd"] == cfg.n_layers, launches
+    assert launches["flash_attention_fwd"] == attn_layers(cfg), launches
     assert logits.shape == (PREFILL_B, 1, cfg.vocab_padded)
     assert torch.isfinite(logits).all()
-    attn = cache["moe"] if is_moe else cache
-    assert attn["k"].shape == (cfg.n_layers, PREFILL_B,
-                               PREFILL_S + DECODE_STEPS, cfg.n_kv, cfg.hd)
+    check_cache_shapes(cfg, cache, PREFILL_B, T)
     dropped = ""
     if is_moe:
         n_drop = int(torch.stack(drops).sum())
@@ -2244,6 +2433,8 @@ def run_lm(arch):
         dropped = (f", copies dropped at capacity factor "
                    f"{cfg.moe_capacity} ({cap} rows an expert): {n_drop} "
                    f"of {copies} ({100 * n_drop / copies:.4f}%)")
+    kvquant = check_kvquant(tag, ring_of(cfg, cache)) \
+        if cfg.family == "griffin" else None
 
     decode = make_decode_step(cfg)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -2256,7 +2447,10 @@ def run_lm(arch):
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
         assert torch.isfinite(dl).all()
-    assert int(attn["pos"][0, -1]) == PREFILL_S + DECODE_STEPS - 1
+    ring = ring_of(cfg, cache)
+    if ring is not None:          # the last position, at its ring slot
+        W = ring["pos"].shape[1]
+        assert int(ring["pos"][0, (T - 1) % W]) == T - 1
     steps = np.array(steps) * 1e3
     peak = torch.cuda.max_memory_allocated()
     log(f"{tag} prefill {PREFILL_B} x {PREFILL_S} tokens: "
@@ -2266,25 +2460,29 @@ def run_lm(arch):
         f"{PREFILL_B}: p50 {np.percentile(steps, 50):.6f} ms, p99 "
         f"{np.percentile(steps, 99):.6f} ms; peak device memory "
         f"{peak / 2**30:.3f} GiB")
-    spans = MOE_SPANS if is_moe else ()
+    spans = {"moe": MOE_SPANS, "ssm": SSM_SPANS,
+             "griffin": GRIFFIN_SPANS}.get(cfg.family, ())
     split_prefill = time_split(lambda: prefill(params, {"tokens": tokens}),
                                f"{tag} prefill", spans)
     split_decode = time_split(lambda: decode(params, {
         "cache": cache, "tokens": tok[:, None],
-        "idx": PREFILL_S + DECODE_STEPS - 1}), f"{tag} decode step", spans)
+        "idx": T - 1}), f"{tag} decode step", spans)
     del cache, logits
 
     reset_launches()
     fl, _ = forward(cfg, params, tokens=toks(1, 256))
     torch.cuda.synchronize()
     fwd = launch_counts()["flash_attention_fwd"]
-    assert fwd == cfg.n_layers and torch.isfinite(fl).all(), fwd
+    assert fwd == attn_layers(cfg) and torch.isfinite(fl).all(), fwd
     del fl
+    long = griffin_long_prefill(tag, cfg, params, toks) \
+        if cfg.family == "griffin" else None
 
     # the model in float32: prefill (the kernel) against token-by-token
     # decode (plain einsums over the cache); a moe model at a capacity
     # factor of E / K, so that an expert takes every token (cap = N) and
-    # the prefill drops no copy
+    # the prefill drops no copy; mamba2 at a length that is no multiple
+    # of its chunk, so that the prefill pads
     extra = {}
     if is_moe:
         extra = dict(moe_capacity=cfg.n_experts / cfg.top_k)
@@ -2293,15 +2491,74 @@ def run_lm(arch):
             f"{extra['moe_capacity']}: {cap} rows an expert for "
             f"{CHECK_B * CHECK_S} tokens, drop-free")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **extra)
-    check_prefill_vs_decode(tag, cfg32, params32, toks(CHECK_B, CHECK_S))
+    check_s = SSM_CHECK_S if cfg.family == "ssm" else CHECK_S
+    check_prefill_vs_decode(tag, cfg32, params32, toks(CHECK_B, check_s))
     return dict(launches=launches, params=params, params32=params32,
                 cfg=cfg, t_prefill=t_prefill, steps=steps, peak=peak,
-                split_prefill=split_prefill, split_decode=split_decode)
+                split_prefill=split_prefill, split_decode=split_decode,
+                kvquant=kvquant, long=long)
+
+
+def check_kvquant(tag, ring):
+    """``models/kvquant.py`` on a prefill's ring cache: the int8 values
+    and scales of its keys and values, dequantized within the bound of
+    ``tests/test_kvquant.py`` (0.51 of a row's scale), and
+    ``cache_bytes`` equal to the tensors' own bytes."""
+    from repro_torch.models import kvquant
+    out = {}
+    for name in ("k", "v"):
+        x = ring[name]
+        q, s = kvquant.quantize_kv(x)
+        back = kvquant.dequantize_kv(q, s, torch.float32)
+        share = ((back - x.float()).abs() / (s * 0.51)).max().item()
+        assert q.dtype == torch.int8 and share <= 1.0, (name, share)
+        assert kvquant.cache_bytes(tuple(x.shape), True) == \
+            q.nbytes + s.nbytes
+        assert kvquant.cache_bytes(tuple(x.shape), False) == x.nbytes
+        out[name] = share
+        log(f"{tag} kvquant {name} {tuple(x.shape)} {x.dtype}: "
+            f"{x.nbytes} bytes -> {q.nbytes + s.nbytes} as int8 + float32 "
+            f"scales (cache_bytes agrees); the largest error is {share:.4g} "
+            f"of the bound (0.51 of its row's scale)")
+        del q, s, back
+    return out
+
+
+def griffin_long_prefill(tag, cfg, params, toks):
+    """A prefill of 2 x ``GRIFFIN_LONG_S`` tokens, where the window binds
+    in the flash kernel and the ring cache keeps the last ``window``
+    positions, then one decode step onto the wrapped ring."""
+    from repro_torch.models import make_decode_step, make_prefill_step
+    S = GRIFFIN_LONG_S
+    W = cfg.sliding_window
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(cfg, total_len=S)(
+        params, {"tokens": toks(2, S)})
+    torch.cuda.synchronize()
+    t_long = time.perf_counter() - t0
+    n = launch_counts()["flash_attention_fwd"]
+    assert n == attn_layers(cfg) and torch.isfinite(logits).all(), n
+    ring = cache["g_attn"]
+    want = torch.arange(S - W, S, dtype=torch.int32, device=DEVICE)
+    assert ring["k"].shape[2] == W and torch.equal(ring["pos"][0], want)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    _, dl, cache = make_decode_step(cfg)(params, {
+        "cache": cache, "tokens": tok[:, None], "idx": S})
+    assert torch.isfinite(dl).all() and int(ring["pos"][0, S % W]) == S
+    log(f"{tag} prefill 2 x {S} tokens (window {W} binds; the ring keeps "
+        f"positions {S - W}..{S - 1}): {1e3 * t_long:.6f} ms, flash kernel "
+        f"launches {n}; one decode step onto the wrapped ring at slot "
+        f"{S % W}")
+    del cache, logits
+    return dict(ms=1e3 * t_long)
 
 
 def run_serve_lm(cfg, params, tag):
-    """``[serve:lm]`` / ``[serve:lm:moe]``: the LM server at full width
-    (see the module docstring).  Returns its launch counts."""
+    """``[serve:lm]``, ``[serve:lm:moe]``, ``[serve:lm:ssm]``,
+    ``[serve:lm:griffin]``: the LM server at full width (see the module
+    docstring).  Returns its launch counts."""
     from repro_torch.launch.serve import Request, Server
     from repro_torch.pipeline import recover
     rng = np.random.default_rng(SEED + 3)
@@ -2401,12 +2658,12 @@ def check_flash_grad(iters):
     q, k, v = (x.requires_grad_() for x in _flash_inputs(g, B, S, H, KV, D,
                                                          _BF))
     go = torch.randn(q.shape, generator=g, device=DEVICE).to(_BF)
+    busy = dict.fromkeys(("", "flash_fwd_kernel"), 0.0)
     dev, _ = device_events(lambda: torch.autograd.grad(
         FA.FlashAttention.apply(q, k, v, True, None, None), (q, k, v), go),
-        iters, operators=False)
-    total = sum(t for _, t, _ in dev) / iters / 1e3
-    fwd = sum(t for name, t, _ in dev
-              if "flash_fwd_kernel" in name) / iters / 1e3
+        iters, operators=False, busy=busy)
+    total = busy[""] / iters / 1e3
+    fwd = busy["flash_fwd_kernel"] / iters / 1e3
     log(f"[train] one layer's attention at ({B}, {S}, {H}, {KV}, {D}) "
         f"bfloat16: forward kernel {fwd:.6f} ms, backward (the plain "
         f"recompute in float64 scores and autograd) {total - fwd:.6f} ms "
@@ -2437,7 +2694,11 @@ def step_split(cfg, opt_cfg, params, opt_state, batch):
         out[name] = [(e.key, e.self_device_time_total / 1e3)
                      for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA
-                     and e.key not in MOE_SPANS]
+                     and e.key not in ALL_SPANS
+                     and kernel_class(e.key) != "flash"] + [
+            ("flash_fwd_kernel, its grids' union",
+             sum(busy_us(prof.events(), k) for k in
+                 ("flash_fwd_kernel", "flash_f32_kernel")) / 1e3)]
         return res
 
     with torch.enable_grad():
@@ -2460,10 +2721,12 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def train_full_width(cfg, params, profile, tag):
-    """``[train]`` / ``[train:moe]`` (b): ``cfg`` at full width and depth,
-    from its float32 ``params`` (drawn once for the model's ``[lm]``
-    phase and updated in place here), AdamW with bfloat16 moments,
+def train_full_width(cfg, params, profile, tag, source="the [lm] phase's "
+                     "draw"):
+    """``[train]``, ``[train:moe]``, ``[train:ssm]``, ``[train:griffin]``
+    (b): ``cfg`` at full width (and full depth but for recurrentgemma's),
+    from its float32 ``params`` (drawn once for the model's ``[lm]`` phase
+    and updated in place here), AdamW with bfloat16 moments,
     ``TRAIN_STEPS`` steps on ``TRAIN_B`` x ``TRAIN_S`` tokens of
     ``lm_batch``.  Returns the flash launches and the numbers."""
     from repro_torch import data, optim
@@ -2471,7 +2734,7 @@ def train_full_width(cfg, params, profile, tag):
     from repro_torch.models.base import tree_leaves
     assert cfg.remat and cfg.compute_dtype == "bfloat16"
     assert not torch.backends.cuda.matmul.allow_tf32
-    is_moe = cfg.family != "dense"
+    is_moe = cfg.family in ("moe", "mla_moe")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2479,10 +2742,11 @@ def train_full_width(cfg, params, profile, tag):
     opt_state = optim.init(opt, params)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    assert n_params == LM_PARAMS[cfg.name], n_params
+    assert n_params == layout_params(cfg), n_params
     state_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"{tag} {cfg.name}: {n_params} float32 parameters (the [lm] "
-        f"phase's draw) and AdamW moments in {opt.moment_dtype} made in "
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, {n_params} float32 "
+        f"parameters ({source}) and AdamW moments in {opt.moment_dtype} "
+        f"made in "
         f"{time.perf_counter() - t0:.3f} s: {state_gib:.3f} GiB on the "
         f"card; {opt}")
     dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
@@ -2517,7 +2781,7 @@ def train_full_width(cfg, params, profile, tag):
     if not is_moe:
         assert losses[-1] < losses[0], losses
     assert launches["flash_attention_fwd"] == \
-        2 * cfg.n_layers * TRAIN_STEPS, launches
+        2 * attn_layers(cfg) * TRAIN_STEPS, launches
     split = None
     if profile:
         split = step_split(cfg, opt, params, opt_state,
@@ -2556,16 +2820,57 @@ def tree_max_err(got, want, path=""):
             max(b.abs().max().item(), 1e-30), path)
 
 
+def adam_step_share(p_got, p_want, g_got, g_want, opt, lr):
+    """One AdamW step from each side's own gradients against the other:
+    (the largest parameter difference, its largest share of the bar, the
+    elements held to the near-zero bar whose gradients differ, where the
+    largest share lies, the largest share of the bar without that rule).
+    The bar is ``CARD_CPU_TOL['param']`` x lr and one float32 ulp of the
+    parameter, and 2 lr and the ulp where both sides' gradients, clipped
+    as ``optim.update`` clips them, lie within ``NEAR_ZERO_EPS`` eps of
+    0 (see ``CARD_CPU_TOL``)."""
+    def clipped(grads):
+        leaves = [g.detach().float().cpu() for _, g in named_leaves(grads)]
+        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in leaves))
+        scale = min(1.0, opt.clip_norm / max(norm.item(), 1e-30))
+        return [g * scale for g in leaves]
+
+    near = NEAR_ZERO_EPS * opt.eps
+    moved = top = strict = 0.0
+    n_near, where = 0, ""
+    for (name, a), (_, b), gc, gh in zip(
+            named_leaves(p_got), named_leaves(p_want), clipped(g_got),
+            clipped(g_want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        d = (a - b).abs()
+        moved = max(moved, d.max().item())
+        zero = (gc.abs() <= near) & (gh.abs() <= near)
+        n_near += int((zero & (gc != gh)).sum())
+        ulp = 2.0 ** -22 * b.abs()
+        strict = max(strict, (d / (CARD_CPU_TOL["param"] * lr + ulp))
+                     .max().item())
+        sh = d / (torch.where(zero, 2.0, CARD_CPU_TOL["param"]) * lr + ulp)
+        i = int(sh.argmax())
+        if sh.flatten()[i].item() > top:
+            top = sh.flatten()[i].item()
+            where = (f"leaf {name}, its clipped gradient there "
+                     f"{gc.flatten()[i].item():.3g} on the card, "
+                     f"{gh.flatten()[i].item():.3g} on the CPU")
+    return moved, top, n_near, where, strict
+
+
 def train_card_vs_cpu(arch, tag):
-    """``[train]`` / ``[train:moe]`` (c): one AdamW step of ``arch``'s
-    widths at ``CHECK_LAYERS`` layers in float32 on the card (the float32
-    kernel in the forward) and on the CPU (the plain attention), from the
-    same weights and batch, both drawn on the CPU generator."""
+    """``[train]`` / ``[train:moe]`` / ``[train:ssm]`` (c): one AdamW step
+    of ``arch``'s widths at ``CHECK_LAYERS`` layers in float32 on the card
+    (the float32 kernel in the forward) and on the CPU (the plain
+    attention), from the same weights and batch, both drawn on the CPU
+    generator: the loss, the gradients and the updated parameters, each
+    within ``CARD_CPU_TOL``."""
     import dataclasses
     from repro_torch import data, optim
     from repro_torch.configs import get_config
     from repro_torch.models import loss_and_grad
-    from repro_torch.models.base import tree_leaves, tree_map
+    from repro_torch.models.base import tree_map
     cfg = dataclasses.replace(get_config(arch), n_layers=CHECK_LAYERS,
                               compute_dtype="float32")
     opt = train_opt(moment_dtype="float32")
@@ -2587,15 +2892,13 @@ def train_card_vs_cpu(arch, tag):
         log(f"{tag} card vs cpu: the {where} step took "
             f"{time.perf_counter() - t0:.3f} s")
     (l_c, g_c, p_c, n_c), (l_h, g_h, p_h, n_h) = out["card"], out["cpu"]
+    del card, host, out
+    torch.cuda.empty_cache()
     loss_err = abs(l_c - l_h) / abs(l_h)
     grad_err, grad_leaf = tree_max_err(g_c, g_h)
     lr = optim.schedule(opt, torch.tensor(1)).item()     # step 1's rate
-    moved = param_share = 0.0
-    for a, b in zip(tree_leaves(p_c), tree_leaves(p_h)):
-        d = (a - b).abs()
-        moved = max(moved, d.max().item())
-        bar = CARD_CPU_TOL["param"] * lr + 2.0 ** -22 * b.abs()
-        param_share = max(param_share, (d / bar).max().item())
+    moved, param_share, n_near, worst, strict = adam_step_share(
+        p_c, p_h, g_c, g_h, opt, lr)
     log(f"{tag} card vs cpu, {CHECK_LAYERS} layers of {arch} in "
         f"float32, 1 x {CHECK_TRAIN_S} tokens, one AdamW step: loss "
         f"{l_c:.9g} vs {l_h:.9g} (relative {loss_err:.3g}, bar "
@@ -2604,14 +2907,17 @@ def train_card_vs_cpu(arch, tag):
         f"|value| (leaf {grad_leaf}; bar {CARD_CPU_TOL['grad']:g}); updated "
         f"parameters: largest difference {moved:.3g} = {moved / lr:.3g} "
         f"x lr = {lr:.3g} (bar {CARD_CPU_TOL['param']:g} x lr + one float32 "
-        f"ulp of the parameter; the largest share of it {param_share:.3g})")
+        f"ulp of the parameter, 2 x lr + the ulp at {n_near} elements "
+        f"whose clipped gradients differ within {NEAR_ZERO_EPS} eps of 0 "
+        f"on both sides; the largest share of its bar {param_share:.3g}: "
+        f"{worst}; of the 0.1 lr bar everywhere {strict:.3g})")
     assert loss_err <= CARD_CPU_TOL["loss"], loss_err
     assert abs(n_c - n_h) / n_h <= CARD_CPU_TOL["grad"], (n_c, n_h)
     assert grad_err <= CARD_CPU_TOL["grad"], (grad_err, grad_leaf)
-    assert param_share <= 1.0, (moved, param_share)
-    del card, host, out
-    torch.cuda.empty_cache()
-    return dict(loss_err=loss_err, grad_err=grad_err, param_lr=moved / lr)
+    assert param_share <= 1.0, (moved, param_share, worst)
+    return dict(loss_err=loss_err, grad_err=grad_err, param_lr=moved / lr,
+                param_share=param_share, near_zero=n_near,
+                strict_share=strict)
 
 
 def train_driver():
@@ -2804,25 +3110,24 @@ def mla_layer(tag):
     del tree, p, p32, cache, c32
 
 
-def mla_smoke_card_vs_cpu(tag):
-    """``[lm:mla]`` (ii): deepseek-v3's ``smoke()`` config (MLA, a dense
-    first layer, sigmoid routing, a shared expert, MTP) in float32 on the
-    card and on the CPU from the same weights and inputs: ``forward``,
-    ``prefill`` and three decode steps (logits and every cache leaf), then
-    ``loss_fn`` with every gradient leaf and one AdamW step, each within
-    ``CARD_CPU_TOL``."""
+def smoke_card_vs_cpu(cfg, tag, S):
+    """``[lm:mla]`` (ii), ``[lm:griffin]``: a small config (deepseek-v3's
+    ``smoke()``: MLA, a dense first layer, sigmoid routing, a shared
+    expert, MTP; recurrentgemma's with a group and a tail of two) in
+    float32 on the card and on the CPU from the same weights and inputs:
+    ``forward``, ``prefill`` of 2 x ``S`` and three decode steps (logits
+    and every cache leaf), then ``loss_fn`` with every gradient leaf and
+    one AdamW step, each within ``CARD_CPU_TOL``.  Returns the CPU's
+    metrics."""
     from repro_torch import optim
-    from repro_torch.configs import get_config, smoke
     from repro_torch.models import (forward, loss_and_grad,
                                     make_decode_step, make_prefill_step)
     from repro_torch.models.base import tree_leaves, tree_map
-    cfg = smoke(get_config(MLA_ARCH))
-    assert cfg.use_mla and cfg.first_k_dense and cfg.mtp_depth
     opt = train_opt(moment_dtype="float32")
     card = draw_params(cfg, SEED + 8)
     host = tree_map(lambda a: a.to("cpu", copy=True), card)
     rng = np.random.default_rng(SEED + 8)
-    B, S = 2, 64
+    B = 2
     np_in = {k: rng.integers(0, cfg.vocab, shape).astype(np.int32)
              for k, shape in (("tokens", (B, S)), ("labels", (B, S)),
                               ("steps", (3, B, 1)))}
@@ -2835,8 +3140,9 @@ def mla_smoke_card_vs_cpu(tag):
         with torch.no_grad():
             real = slice(0, cfg.vocab)   # the padding logits are -1e30
             logits, aux = forward(cfg, params, tokens=t["tokens"])
-            r["forward"], r["forward lb_loss"] = logits[..., real], \
-                aux["lb_loss"]
+            r["forward"] = logits[..., real]
+            if "lb_loss" in aux:
+                r["forward lb_loss"] = aux["lb_loss"]
             logits, cache = make_prefill_step(cfg, total_len=S + 3)(
                 params, {"tokens": t["tokens"]})
             r["prefill"] = logits[..., real]
@@ -2854,7 +3160,7 @@ def mla_smoke_card_vs_cpu(tag):
         r["params"], _, _ = optim.update(opt, grads, optim.init(opt, params),
                                          params)
         out[where] = tree_map(lambda a: a.cpu(), r)
-        log(f"{tag} (ii) {where}: {time.perf_counter() - t0:.3f} s")
+        log(f"{tag} smoke {where}: {time.perf_counter() - t0:.3f} s")
     c, h = out["card"], out["cpu"]
     errs = {}
     for key in h:
@@ -2864,26 +3170,83 @@ def mla_smoke_card_vs_cpu(tag):
     loss_err = max(abs(c["metrics"][k].item() - h["metrics"][k].item()) /
                    abs(h["metrics"][k].item()) for k in h["metrics"])
     lr = optim.schedule(opt, torch.tensor(1)).item()
-    share = max(((a - b).abs() / (CARD_CPU_TOL["param"] * lr +
-                                  2.0 ** -22 * b.abs())).max().item()
-                for a, b in zip(tree_leaves(c["params"]),
-                                tree_leaves(h["params"])))
-    log(f"{tag} (ii) smoke() of {MLA_ARCH} ({cfg.n_layers} layers, "
-        f"{cfg.first_k_dense} dense, {cfg.n_experts} experts top "
-        f"{cfg.top_k} + {cfg.n_shared_experts} shared, MTP {cfg.mtp_depth}) "
-        f"in float32, {B} x {S} tokens, card vs cpu: largest error of a "
+    _, share, n_near, worst, strict = adam_step_share(
+        c["params"], h["params"], c["grads"], h["grads"], opt, lr)
+    log(f"{tag} smoke config of {cfg.name} ({describe(cfg)}) in float32, "
+        f"{B} x {S} tokens, card vs cpu: largest error of a "
         f"leaf over its largest |value| " + ", ".join(
             f"{k} {e:.3g}" for k, (e, _) in errs.items()) +
         f" (bar {CARD_CPU_TOL['grad']:g}); metrics "
         f"{ {k: round(v.item(), 6) for k, v in h['metrics'].items()} }, "
         f"largest relative error {loss_err:.3g} (bar "
         f"{CARD_CPU_TOL['loss']:g}); updated parameters: {share:.3g} of "
-        f"the bar ({CARD_CPU_TOL['param']:g} x lr + one float32 ulp)")
-    assert sorted(h["metrics"]) == ["lb_loss", "loss", "mtp_loss", "nll"]
+        f"the bar ({CARD_CPU_TOL['param']:g} x lr + one float32 ulp; 2 x lr "
+        f"+ the ulp at {n_near} elements near 0: {worst}; of the 0.1 lr bar "
+        f"everywhere {strict:.3g})")
     for k, (e, leaf) in errs.items():
         assert e <= CARD_CPU_TOL["grad"], (k, e, leaf)
     assert loss_err <= CARD_CPU_TOL["loss"], loss_err
-    assert share <= 1.0, share
+    assert share <= 1.0, (share, worst)
+    return h["metrics"]
+
+
+def mla_smoke_config():
+    from repro_torch.configs import get_config, smoke
+    cfg = smoke(get_config(MLA_ARCH))
+    assert cfg.use_mla and cfg.first_k_dense and cfg.mtp_depth
+    return cfg
+
+
+def griffin_smoke_config():
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    cfg = dataclasses.replace(smoke(get_config(GRIFFIN_ARCH)),
+                              n_layers=GRIFFIN_SMOKE_LAYERS)
+    assert cfg.n_layers % cfg.attn_every == 2
+    assert cfg.sliding_window < SMOKE_S[GRIFFIN_ARCH]   # the ring wraps
+    return cfg
+
+
+def run_train_ssm(params32, profile):
+    """``[train:ssm]``: (b) mamba2-2.7b at full width and depth from
+    ``[lm:ssm]``'s float32 ``params32``, (c) its widths at
+    ``CHECK_LAYERS`` layers, card against CPU.  Returns the launch counts
+    of (b)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    launches, full = train_full_width(get_config(SSM_ARCH), params32,
+                                      profile, "[train:ssm]")
+    del params32
+    log(f"[time] [train:ssm] (b) {time.perf_counter() - t0:.3f} s")
+    vs_cpu = train_card_vs_cpu(SSM_ARCH, "[train:ssm]")
+    log(f"[time] [train:ssm] (c) {time.perf_counter() - t0:.3f} s")
+    return launches, dict(full=full, vs_cpu=vs_cpu)
+
+
+def run_train_griffin(params32, profile):
+    """``[train:griffin]``: recurrentgemma-9b's full width at a cut depth
+    of 3 ``GRIFFIN_TRAIN_GROUPS`` + 2 layers: the first groups of
+    ``[lm:griffin]``'s float32 draw and its two tail layers, copied out
+    before the full draw is freed.  Returns the launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import tree_map
+    full = get_config(GRIFFIN_ARCH)
+    g = GRIFFIN_TRAIN_GROUPS
+    cfg = dataclasses.replace(full, n_layers=3 * g + full.n_layers % 3)
+    cut = {k: v for k, v in params32.items() if k != "blocks"}
+    cut["blocks"] = {k: (tree_map(lambda a: a[:g], v)
+                         if k.startswith("g_") else v)
+                     for k, v in params32["blocks"].items()}
+    cut = tree_map(lambda a: a.clone(), cut)
+    params32.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, out = train_full_width(
+        cfg, cut, profile, "[train:griffin]",
+        f"the [lm:griffin] draw's first {g} groups and its tail")
+    log(f"[time] [train:griffin] {time.perf_counter() - t0:.3f} s")
+    return launches, out
 
 
 def run_mla():
@@ -2900,7 +3263,9 @@ def run_mla():
     t0 = time.perf_counter()
     mla_layer("[lm:mla]")
     log(f"[time] [lm:mla] (i) {time.perf_counter() - t0:.3f} s")
-    mla_smoke_card_vs_cpu("[lm:mla]")
+    smoke = smoke_card_vs_cpu(mla_smoke_config(), "[lm:mla] (ii)",
+                              SMOKE_S[MLA_ARCH])
+    assert sorted(smoke) == ["lb_loss", "loss", "mtp_loss", "nll"]
     log(f"[time] [lm:mla] (ii) {time.perf_counter() - t0:.3f} s")
 
 
@@ -3103,7 +3468,33 @@ def main(argv=None) -> int:
     run_mla()
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 15. launch counts ------------------------------------------------
+    # -- 15. the ssm family: mamba2-2.7b served and trained ----------------
+    lm = run_lm(SSM_ARCH)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    serve_ssm_launches = run_serve_lm(lm["cfg"], lm["params"],
+                                      "[serve:lm:ssm]")
+    ssm_launches, params32 = lm["launches"], lm["params32"]
+    del lm
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    train_ssm_launches, _ = run_train_ssm(params32, args.profile)
+    del params32
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 16. the griffin family: recurrentgemma-9b served and trained ------
+    lm = run_lm(GRIFFIN_ARCH)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    smoke_card_vs_cpu(griffin_smoke_config(), "[lm:griffin]",
+                      SMOKE_S[GRIFFIN_ARCH])
+    serve_griffin_launches = run_serve_lm(lm["cfg"], lm["params"],
+                                          "[serve:lm:griffin]")
+    griffin_launches, params32 = lm["launches"], lm["params32"]
+    del lm
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+    train_griffin_launches, _ = run_train_griffin(params32, args.profile)
+    del params32
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 17. launch counts ------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
@@ -3113,10 +3504,18 @@ def main(argv=None) -> int:
         sharded_launches
     assert sharded_launches["pi_range"] >= SHARDS, sharded_launches
     assert overload_launches["pi_probe"] >= 1, overload_launches
+    # griffin: its 12 attention layers once a prefill, twice a train step
+    assert griffin_launches["flash_attention_fwd"] == 12, griffin_launches
+    assert train_griffin_launches["flash_attention_fwd"] == \
+        2 * GRIFFIN_TRAIN_GROUPS * TRAIN_STEPS, train_griffin_launches
+    assert ssm_launches["flash_attention_fwd"] == 0 == \
+        train_ssm_launches["flash_attention_fwd"]
     paths = (launches, serve_launches, durable_launches, sharded_launches,
              overload_launches, lm_launches, serve_lm_launches,
              train_launches, moe_launches, serve_moe_launches,
-             train_moe_launches)
+             train_moe_launches, ssm_launches, serve_ssm_launches,
+             train_ssm_launches, griffin_launches, serve_griffin_launches,
+             train_griffin_launches)
 
     def total(name):
         return sum(p[name] for p in paths)
@@ -3160,8 +3559,13 @@ def main(argv=None) -> int:
              launches=total("flash_attention_fwd"), max_abs_err=flash["err"],
              ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound"][0], bound_by=flash["bound"][1],
-             library_ms=flash["library_ms"]),
+             library_ms=flash["library_ms"], grid_ms=flash["grid_ms"],
+             recurrentgemma_ms=flash["griffin"]["ms"],
+             recurrentgemma_grid_ms=flash["griffin"]["grid_ms"],
+             recurrentgemma_bound_ms=flash["griffin"]["bound"][0],
+             recurrentgemma_library_ms=flash["griffin"]["library_ms"]),
     ]
+    log(f"[time] the whole script: {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,7 @@
 Counterpart of ``repro.configs``: one module per architecture (the same
 public-literature configs, built on the port's ``ModelConfig``) plus
 ``smoke()``, which shrinks any config to a CPU-runnable variant of the
-same family.  The port serves the dense, moe and mla_moe families; ssm
-and griffin are data here until their models are ported (ROADMAP A10).
+same family.  The port serves every family of them.
 """
 from __future__ import annotations
 

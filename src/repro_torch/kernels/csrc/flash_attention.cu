@@ -25,7 +25,7 @@
 // out: 0.209 ms at the tensor cores' 989 TFLOP/s against 0.120 ms of HBM
 // traffic.  So the bfloat16 kernel does both products on the tensor cores.
 //
-// bfloat16: flash_fwd_kernel<D>, wgmma fed by TMA.
+// bfloat16: flash_fwd_kernel<D, EXACT>, wgmma fed by TMA.
 // * One block of 384 threads per (128 query rows, head, batch row); the
 //   blocks of the last query tiles, which see the most keys under the
 //   causal mask, start first, and the query tiles of one head run side by
@@ -61,6 +61,20 @@
 //   __expf, for the same reason) run on the accumulator fragment: a thread
 //   holds two rows, and the row max is a shuffle over the 4 lanes that
 //   share a row; l is summed per thread and over those lanes at the end.
+// * The causal rows 0..63 (the first warpgroup of the first query tile)
+//   see at most 64 keys, so one probability that rounds to bf16 the other
+//   way than the plain version's moves such a row's output by up to 2^-8
+//   p |v| / l with l small, past CARD_TOL (seen at D = 256 and near it at
+//   D = 96).  Their scores are taken from shared memory exactly instead
+//   (exact_scores: bf16 q and k in float64 on the float64 tensor cores,
+//   whose sums of these products are exact, rounded once to float32: the
+//   plain version's scores), the bf16 tensor cores' S discarded there;
+//   every other row keeps it.  That path is its own instantiation,
+//   flash_fwd_kernel<D, true>, over the first query tile alone, launched
+//   after flash_fwd_kernel<D, false> has taken the others and overlapping
+//   its tail (a programmatic dependent launch): the same branch inside
+//   the pipelined loop of one kernel slowed every tile (phi3's prefill
+//   shape 0.66 -> 1.02 ms on the H100), the separate launch costs ~1 %.
 // * O += P V: p rounded to bf16 in registers is wgmma's A operand (the
 //   accumulator of a 16-key slice is laid out as the m64k16 A fragment);
 //   v is the B operand from shared memory in its [key][d] layout with the
@@ -275,6 +289,69 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// The scores of this warpgroup's rows 0..63 against keys 0..63 of the
+// first key tile, taken exactly: bf16 q and k converted to float64 and
+// multiplied on the float64 tensor cores (mma m8n8k4), whose products of
+// bf16 values are exact and whose float64 sums over D are exact here,
+// rounded once to float32 -- the plain version's scores.  A warp's 16
+// rows are two m8 row blocks and 8 keys an n8 column block; mma's
+// accumulator fragment (row lane / 4, columns 2 (lane % 4) + e) is this
+// thread's sc[4 j + 2 r + e] of the wgmma fragment (rows ra + 8 r, keys
+// 8 j + cq + e), so every score lands in the thread that holds it.  Keys
+// from 64 on lie above all of these rows and are left 0 (the softmax
+// masks them), as is sc2.  Element (row, col) of a column block of
+// SW-byte rows sits at byte row * SW + 2 (col % CW), its 16-byte chunk
+// bits [4, 7) XORed with bits [7, 10) (TMA's swizzle; every block starts
+// on a 1024-byte boundary).
+template <int D>
+__device__ __forceinline__ void exact_scores(float (&sc)[TcShape<D>::BK / 2],
+                                          float (&sc2)[TcShape<D>::BK / 2],
+                                          const uint8_t* q, const uint8_t* k,
+                                          int warp, int lane) {
+  using Sh = TcShape<D>;
+  constexpr int BK = Sh::BK, CW = Sh::CW, SW = Sh::SW;
+  constexpr uint32_t M = SW / 16 - 1;
+  auto at = [&](const uint8_t* base, int block_rows, int row, int col) {
+    uint32_t l = row * SW + 2 * (col % CW);
+    l ^= ((l >> 7) & M) << 4;
+    return static_cast<double>(__bfloat162float(
+        *reinterpret_cast<const __nv_bfloat16*>(
+            base + (col / CW) * block_rows * SW + l)));
+  };
+#pragma unroll
+  for (int x = 0; x < BK / 2; ++x) sc[x] = sc2[x] = 0.f;
+  const int d4 = lane % 4, r4 = lane / 4;
+#pragma unroll
+  for (int j0 = 0; j0 < 8; j0 += 2) {  // two column blocks at a time
+    double acc[2][2][2] = {};          // [row block][column block][e]
+#pragma unroll 4
+    for (int d = d4; d < D; d += 4) {
+      double a[2], b[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        a[r] = at(q, TC_BQ, 16 * warp + 8 * r + r4, d);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) b[j] = at(k, BK, 8 * (j0 + j) + r4, d);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          asm volatile(
+              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+              "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+              : "+d"(acc[r][j][0]), "+d"(acc[r][j][1])
+              : "d"(a[r]), "d"(b[j]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sc[4 * (j0 + j) + 2 * r + e] = __double2float_rn(acc[r][j][e]);
+  }
+}
+
 // The softmax of one key tile on the accumulator fragment: adds the two
 // halves of S, applies the softcap and the mask, updates the row maxima m
 // and the sums l, leaves p = exp(s - m_new) in sc and the rows' factors
@@ -350,13 +427,16 @@ __device__ __forceinline__ void rescale_and_pack(
       pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
 }
 
-template <int D>
+// Query tiles qt0 .. qt0 + gridDim.x - 1; EXACT: the causal first tile
+// (qt0 = 0, one tile), its rows 0..63 on exact scores.
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                 int KV, int causal, int window, float softcap, float scale) {
+                 int KV, int causal, int window, float softcap, float scale,
+                 int qt0) {
   using Sh = TcShape<D>;
   constexpr int BK = Sh::BK, CW = Sh::CW, SW = Sh::SW, STAGES = Sh::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -368,7 +448,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t kv_full = smem_u32(&bars[1]);                // + 8 s
   const uint32_t kv_empty = smem_u32(&bars[1 + STAGES]);  // + 8 s
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
+  // heavy causal tiles first
+  const int qt = qt0 + gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -380,6 +461,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int t_begin = k_begin / BK;
   const int t_end = (k_end + BK - 1) / BK;
 
+  // the EXACT launch over the first tile may start as this grid's last
+  // blocks start (it writes other rows; see launch_tc)
+  if constexpr (!EXACT)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -422,6 +507,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int ra = r_lo + 16 * (tw / 32) + lane / 4;      // rows ra, ra + 8
     const int cq = 2 * (lane % 4);  // columns cq, cq + 1 of every 8
     const uint32_t qa = sq + 64 * wg * SW;  // its rows in q's first block
+    // the causal rows 0..63 see at most 64 keys, so a probability there
+    // weighs up to 1/l >= 1/64 of the output, and one that rounds to bf16
+    // the other way than the plain version's (the tensor cores' float32
+    // sums round apart from the exact scores) moves it past CARD_TOL:
+    // their scores are taken exactly instead
+    const bool exact = EXACT && wg == 0;
+    const uint8_t* qs = smem_raw + (qa - raw);
 
     mbar_wait(q_full, 0);
     // q * scale rounded to bf16, in place, over this warpgroup's rows
@@ -473,6 +565,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       pin(sc);
       pin(sc2);
+      if (exact)  // the first tile: keys 0..BK-1, all that rows 0..63 see
+        exact_scores<D>(sc, sc2, qs, smem_raw + (skv - raw), tw / 32, lane);
       softmax_tile<D>(sc, sc2, m, l, corr, kb, whole(kb), Sk, causal, window,
                       softcap, ra, cq);
       rescale_and_pack<D>(o, pa, sc, corr);
@@ -529,6 +623,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                                   o[4 * j + 2 * r + 1] / denom);
     }
   }
+  // the EXACT launch ends after the grid it overlapped (a no-op without
+  // one), so that the stream's next work sees both
+  if constexpr (EXACT) asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -588,15 +685,38 @@ static int launch_tc(const void* q, const void* k, const void* v, void* out,
       !tensor_map<D>(&mk, k, B, Sk, KV, Sh::BK) ||
       !tensor_map<D>(&mv, v, B, Sk, KV, Sh::BK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
-  kernel<<<grid, TC_THREADS, Sh::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal,
-      window, softcap, scale);
-  return (int)cudaGetLastError();
+  // causal: the first query tile apart, by the instantiation that takes
+  // its first 64 rows' scores exactly, launched second as a programmatic
+  // dependent of the first launch so that its blocks run in that one's
+  // tail (it reads only q, k, v, which the first launch does not write)
+  const int tiles = (Sq + TC_BQ - 1) / TC_BQ, first = causal ? 1 : 0;
+  for (int exact = 0; exact < 2; ++exact) {
+    const int qt0 = exact ? 0 : first, n = exact ? first : tiles - first;
+    if (n == 0) continue;
+    auto kernel =
+        exact ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute overlap[1];
+    overlap[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    // only behind this call's own first launch: behind another kernel the
+    // attribute would let it read q, k, v before they are written
+    overlap[0].val.programmaticStreamSerializationAllowed =
+        exact && tiles > first;
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = dim3(n, H, B);
+    lc.blockDim = dim3(TC_THREADS);
+    lc.dynamicSmemBytes = Sh::SMEM;
+    lc.stream = stream;
+    lc.attrs = overlap;
+    lc.numAttrs = 1;
+    err = cudaLaunchKernelEx(&lc, kernel, mq, mk, mv,
+                             static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
+                             causal, window, softcap, scale, qt0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------

@@ -34,7 +34,14 @@ by dtype:
   ``mbarrier``-guarded shared memory, swizzled by 128 bytes where D is a
   multiple of 64, by 64 at D = 32 and 96 and by 32 at D = 16.  Scores are
   summed in two float32 halves over D and the softmax takes ``expf``, to
-  stay near the plain version's exactly rounded scores.
+  stay near the plain version's exactly rounded scores; the causal rows
+  0..63, which see at most 64 keys (there one probability rounded to
+  bf16 the other way weighs enough to move the output past
+  ``CARD_TOL``), take their scores exactly (bf16 products summed in
+  float64 on the float64 tensor cores, rounded once), as the plain
+  version does: a second instantiation of the kernel over the first
+  query tile, launched as a programmatic dependent of the first, which
+  takes the others (one call, one count).
 * float32: ``flash_f32_kernel``, FFMAs on the CUDA cores (its bar, 1e-5 of
   the plain version, admits neither TF32 nor bfloat16 operands on the
   tensor cores).  A block of 256 threads takes 128 query rows (64 at

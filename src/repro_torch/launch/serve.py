@@ -10,12 +10,15 @@ SEARCHes pad it), a depth-0 ``Dispatcher`` (the scheduler needs the
 lookups within the tick) with the overload breaker armed by default, and,
 with ``wal_dir``, the WAL and snapshots of ``pipeline.recovery``.
 
-The model side is the port's LM of any ported family (dense, moe,
-mla_moe): every token, prompt tokens included, goes through
+The model side is the port's LM of any family (dense, moe, mla_moe,
+ssm, griffin): every token, prompt tokens included, goes through
 ``make_decode_step`` over the whole slot pool, as the JAX server does.
 A MoE decode step of ``n_slots`` <= 8 tokens drops no copy (its capacity
 is at least 8 rows an expert), so one slot's tokens never change
-another's.  Pass parameters already in the compute dtype
+another's.  A recurrent family's step advances the state of every slot,
+idle or mid-request, with the token the step gives it (0 where the slot
+has none), as the JAX server's does: a live request's state moves with
+the other slots' prompt steps.  Pass parameters already in the compute dtype
 (``cast_floats`` once): the decode step then casts nothing.  Everything
 lives on ``device`` (default: the card); ``index_backend`` is ``cuda``
 (the CUDA kernels on the card, their plain versions on the CPU) or

@@ -1,9 +1,10 @@
-"""Model zoo of the port: the dense, moe and mla_moe families as PyTorch
-functions over the JAX package's parameter trees, GQA prefill and
-training through the CUDA flash kernel (``models.moe``: routed experts
-by the PI sorted dispatch, MLA, MTP).
-
-Not ported yet (ROADMAP A10): the ssm and griffin families.
+"""Model zoo of the port: every family of the JAX package (dense, moe,
+mla_moe, ssm, griffin) as PyTorch functions over its parameter trees,
+GQA prefill and training through the CUDA flash kernel
+(``models.moe``: routed experts by the PI sorted dispatch, MLA, MTP;
+``models.ssm``: mamba2's chunked SSD and recurrent decode;
+``models.griffin``: the RG-LRU scan and local attention over a ring
+cache; ``models.kvquant``: the int8 KV cache).
 """
 from repro_torch.models.base import (ModelConfig, abstract_params,
                                      cast_floats, init_params,

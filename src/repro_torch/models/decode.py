@@ -11,22 +11,30 @@ over layers):
   mla_moe  : c_kv (L,B,T,kv_lora), k_rope (L,B,T,1,dr) under "moe" and
              "dense" — MLA's compressed cache, written at the absolute
              position (no ring)
+  ssm      : ssm (L,B,H,P,N) float32, conv (L,B,K−1,conv_dim)
+  griffin  : per group stack: rec h (G,B,w) float32 + conv (G,B,K−1,w)
+             under "g_rec0" and "g_rec1", the attention's ring k/v
+             (G,B,W,KV,hd) + pos (G,W) under "g_attn", W = min(length,
+             window); each tail layer's h and conv (1,...) under
+             "tail<t>"
 
 ``prefill`` runs the prompt through every layer, GQA attention with the
 flash kernel (one launch a layer on the card; MLA takes the plain chunked
-attention), and places the captured keys and values in a new cache.
-``decode_step`` writes one position of the cache in place and attends
-over it with plain einsums, as the JAX package does outside any Pallas
-kernel; the cache dict it returns holds the tensors it was given.  The
-ssm and griffin families raise ``NotImplementedError`` with the ROADMAP
-item that ports them.
+attention), and places the captured keys and values, and the recurrent
+families' final states and conv tails, in a new cache.  ``decode_step``
+writes one position of the cache (or the new states) in place and
+attends over it with plain einsums, as the JAX package does outside any
+Pallas kernel; the cache dict it returns holds the tensors it was given.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.index import _device
-from repro_torch.models.base import ModelConfig, cast_floats, torch_dtype
+from repro_torch.models import griffin as gr
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.base import (ModelConfig, cast_floats, torch_dtype,
+                                     tree_map)
 from repro_torch.models.transformer import (_check_ported, add_positions,
                                             dense_block_apply, embed_tokens,
                                             norm, unbind_layers, unembed)
@@ -56,6 +64,29 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int, device=None):
     T = cache_len(cfg, seq_len)
     if cfg.family == "dense":
         return _attn_cache(cfg, cfg.n_layers, B, T, dt, dev)
+    if cfg.family == "ssm":
+        _, nh, conv_dim = ssm_mod._dims(cfg)
+        L = cfg.n_layers
+        return {"ssm": torch.zeros((L, B, nh, cfg.ssm_headdim,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=dev),
+                "conv": torch.zeros((L, B, cfg.ssm_conv - 1, conv_dim),
+                                    dtype=dt, device=dev)}
+    if cfg.family == "griffin":
+        G = cfg.n_layers // cfg.attn_every
+        K = cfg.ssm_conv or 4
+        W = min(seq_len, cfg.sliding_window or seq_len)
+
+        def rec(layers):
+            return {"h": torch.zeros((layers, B, cfg.lru_width),
+                                     dtype=torch.float32, device=dev),
+                    "conv": torch.zeros((layers, B, K - 1, cfg.lru_width),
+                                        dtype=dt, device=dev)}
+        out = {"g_rec0": rec(G), "g_rec1": rec(G),
+               "g_attn": _attn_cache(cfg, G, B, W, dt, dev)}
+        for t in range(cfg.n_layers % cfg.attn_every):
+            out[f"tail{t}"] = rec(1)
+        return out
 
     def stack(layers):
         if not cfg.use_mla:
@@ -103,8 +134,36 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
                 c_l["slot"] = idx % c_l["k"].shape[1]
             x = layer_fn(cfg, p_l, x, positions, cache=c_l)[0]
 
+    def rec(layer_fn, p_l, c_l):
+        """One recurrent layer's step, its new state written into the
+        cache views ``c_l``."""
+        nonlocal x
+        x, new = layer_fn(cfg, p_l, x, cache=c_l)
+        for name, t in zip(("ssm", "conv") if cfg.family == "ssm"
+                           else ("h", "conv"), new):
+            c_l[name].copy_(t)
+
+    def views(stack, i):
+        return {k: c[i] for k, c in stack.items()}
+
     if cfg.family == "dense":
         run(dense_block_apply, params["blocks"], cache)
+    elif cfg.family == "ssm":
+        for i, p_l in enumerate(unbind_layers(params["blocks"])):
+            rec(ssm_mod.block_apply, p_l, views(cache, i))
+    elif cfg.family == "griffin":
+        slot = idx % cache["g_attn"]["k"].shape[2]
+        for i, p_g in enumerate(unbind_layers(
+                {k: params["blocks"][k] for k in gr.GROUP})):
+            rec(gr.rec_layer, p_g["g_rec0"], views(cache["g_rec0"], i))
+            rec(gr.rec_layer, p_g["g_rec1"], views(cache["g_rec1"], i))
+            x = gr.attn_layer(cfg, p_g["g_attn"], x, positions,
+                              cache=dict(views(cache["g_attn"], i),
+                                         slot=slot))[0]
+        for t in range(cfg.n_layers % cfg.attn_every):
+            rec(gr.rec_layer,
+                tree_map(lambda a: a[0], params["blocks"][f"tail{t}"]),
+                views(cache[f"tail{t}"], 0))
     else:
         if cfg.first_k_dense:
             run(moe.dense_layer, params["blocks"]["dense"], cache["dense"])
@@ -179,6 +238,36 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
 
     if cfg.family == "dense":
         new_cache = run(dense_block_apply, params["blocks"])
+    elif cfg.family == "ssm":
+        sts, convs = [], []
+        for p_l in unbind_layers(params["blocks"]):
+            x, (st, conv) = ssm_mod.block_apply(cfg, p_l, x)
+            sts.append(st)
+            convs.append(conv)
+        new_cache = {"ssm": torch.stack(sts), "conv": torch.stack(convs)}
+    elif cfg.family == "griffin":
+        W = T if cfg.sliding_window else total_len
+        new_cache = {k: {"h": [], "conv": []} for k in gr.GROUP[:2]}
+        ks, vs = [], []
+        for p_g in unbind_layers({k: params["blocks"][k] for k in gr.GROUP}):
+            for k in gr.GROUP[:2]:
+                x, (h, conv) = gr.rec_layer(cfg, p_g[k], x)
+                new_cache[k]["h"].append(h)
+                new_cache[k]["conv"].append(conv)
+            x, (k_, v_) = gr.attn_layer(cfg, p_g["g_attn"], x, positions)
+            ks.append(k_)
+            vs.append(v_)
+        new_cache = tree_map(torch.stack, new_cache)
+        ck, pos = _fill_ring(torch.stack(ks), W)
+        del ks
+        cv, _ = _fill_ring(torch.stack(vs), W)
+        del vs
+        new_cache["g_attn"] = {"k": ck, "v": cv, "pos": pos}
+        for t in range(cfg.n_layers % cfg.attn_every):
+            x, (ht, cvt) = gr.rec_layer(
+                cfg, tree_map(lambda a: a[0], params["blocks"][f"tail{t}"]),
+                x)
+            new_cache[f"tail{t}"] = {"h": ht[None], "conv": cvt[None]}
     else:
         new_cache = {}
         if cfg.first_k_dense:

@@ -1,13 +1,14 @@
 """Decoder-only transformer substrate: norms, RoPE, GQA attention, GLU
 MLPs, layer-looped assembly of the dense family, and the model entry
-points of every ported family (dense, and moe / mla_moe through
-``models.moe``).
+points of every family (dense; moe / mla_moe through ``models.moe``, ssm
+through ``models.ssm``, griffin through ``models.griffin``).
 
 Counterpart of ``repro.models.transformer``.  Every tensor program is a
 function of (cfg, params, inputs), params being the nested dict of the
 JAX package's keys with layers stacked on the leading dim of every
 ``blocks`` leaf (``blocks/dense`` and ``blocks/moe`` stacks for the moe
-families); ``DenseLM`` wraps such a tree as an ``nn.Module``.  A layer
+families, ``blocks/g_rec0`` ... stacks of groups and ``blocks/tail<t>``
+for griffin); ``DenseLM`` wraps such a tree as an ``nn.Module``.  A layer
 is a view of the stacks, and the layer loop (``_scan_blocks``) is a
 Python loop where the JAX package scans.
 
@@ -52,19 +53,12 @@ from repro_torch.models.base import (Layout, ModelConfig, ParamDef,
                                      cast_floats, torch_dtype, tree_leaves,
                                      tree_map)
 
-# the families the port serves, and the ROADMAP item that ports each
-# family it does not serve yet
-PORTED_FAMILIES = ("dense", "moe", "mla_moe")
-_FAMILY_ITEM = {"ssm": "A10: models/ssm.py",
-                "griffin": "A10: models/griffin.py"}
+# the families the port serves: every family of the JAX package
+PORTED_FAMILIES = ("dense", "moe", "mla_moe", "ssm", "griffin")
 
 
 def _check_ported(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family in _FAMILY_ITEM:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP "
-                f"{_FAMILY_ITEM[cfg.family]})")
         raise ValueError(cfg.family)
 
 
@@ -102,6 +96,17 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def silu(x):
+    """``jax.nn.silu``: x · sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0), with its gradient
+    sigmoid(x) (also at x = 0)."""
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def act_fn(cfg: ModelConfig, gate, up):
@@ -258,7 +263,8 @@ def dense_block_apply(cfg: ModelConfig, p: Dict, x, positions, cache=None):
 
 def model_layout(cfg: ModelConfig) -> Layout:
     _check_ported(cfg)
-    from repro_torch.models import moe  # cycle-free: imported on use
+    # cycle-free: they import this module
+    from repro_torch.models import griffin, moe, ssm
 
     out: Layout = {
         "embed/tok": ParamDef((cfg.vocab_padded, cfg.d_model),
@@ -269,14 +275,18 @@ def model_layout(cfg: ModelConfig) -> Layout:
         out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded),
                                   ("embed_fsdp", "vocab"))
     if cfg.family == "dense":
-        for k, v in dense_block_layout(cfg, cfg.n_layers).items():
-            out[f"blocks/{k}"] = v
+        blocks = dense_block_layout(cfg, cfg.n_layers)
+    elif cfg.family == "ssm":
+        blocks = ssm.block_layout(cfg, cfg.n_layers)
+    elif cfg.family == "griffin":
+        blocks = griffin.block_layout(cfg)
     else:
-        for k, v in moe.block_layout(cfg).items():
-            out[f"blocks/{k}"] = v
+        blocks = moe.block_layout(cfg)
         if cfg.mtp_depth:
             for k, v in moe.mtp_layout(cfg).items():
                 out[f"mtp/{k}"] = v
+    for k, v in blocks.items():
+        out[f"blocks/{k}"] = v
     return out
 
 
@@ -359,10 +369,10 @@ def _inputs(cfg: ModelConfig, params, tokens, embeds):
 
 def forward(cfg: ModelConfig, params, tokens=None, embeds=None):
     """Full-sequence forward → (logits, aux) (the prefill-logits path).
-    ``aux`` is empty for the dense family; the moe families' holds
-    ``lb_loss`` and ``h_final`` (``moe.forward_blocks``)."""
+    ``aux`` is empty but for the moe families, whose holds ``lb_loss``
+    and ``h_final`` (``moe.forward_blocks``)."""
     _check_ported(cfg)
-    from repro_torch.models import moe
+    from repro_torch.models import griffin, moe, ssm
 
     params = cast_floats(params, cfg.compute_dtype)
     x = _inputs(cfg, params, tokens, embeds)
@@ -373,6 +383,10 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None):
     if cfg.family == "dense":
         x = _scan_blocks(cfg, params["blocks"], x, positions,
                          dense_block_apply)
+    elif cfg.family == "ssm":
+        x = ssm.forward_blocks(cfg, params["blocks"], x)
+    elif cfg.family == "griffin":
+        x = griffin.forward_blocks(cfg, params["blocks"], x, positions)
     else:
         x, aux = moe.forward_blocks(cfg, params["blocks"], x, positions)
     x = norm(cfg, x, params["final_norm"])
@@ -411,8 +425,8 @@ def loss_fn(cfg: ModelConfig, params, batch):
 
 
 class DenseLM(nn.Module):
-    """A model's parameters as an ``nn.Module`` (the dense family, and
-    the moe families' trees alike): one ``Parameter``
+    """A model's parameters as an ``nn.Module`` (any family's tree):
+    one ``Parameter``
     per leaf of the JAX tree (``blocks/attn/wq`` → (L, d, H·hd), …),
     registered under the path with ``/`` as ``__``.  ``tree()`` gives the
     nested dict the functions above take; ``forward`` is the module's

@@ -318,7 +318,10 @@ def test_flash_kernel_matches_plain_on_card():
     crossing tile boundaries, a softcap, GQA with 7 query heads a KV head
     (56 over 8), MQA, no causal mask, and q, k, v views whose base is not
     16-byte aligned, granite-moe's prefill (8 x 2048, 24 heads over 8 of
-    64); float32 (the FFMA kernel) at every head dim and on every path it
+    64), recurrentgemma's (8 x 2048 and 2 x 4096, 16 heads over one of 256,
+    a window of 2048) and 16 heads of 256 at 8 x 2048 (many short causal
+    rows, where one probability rounded the other way would show);
+    float32 (the FFMA kernel) at every head dim and on every path it
     has: GQA (7 query heads a KV head; granite's 3 at (2, 512, 24, 8,
     64)), MQA with a window,
     a softcap, S = 1000 at D = 16 and 256, S = 1 and 17, no causal mask
@@ -356,6 +359,9 @@ def test_flash_kernel_matches_plain_on_card():
              ((1, 500, 8, 2, 96), bf, True, 200, None),
              ((1, 260, 4, 1, 256), bf, True, 100, 30.0),
              ((8, 2048, 24, 8, 64), bf, True, None, None),
+             ((8, 2048, 16, 1, 256), bf, True, 2048, None),
+             ((2, 4096, 16, 1, 256), bf, True, 2048, None),
+             ((8, 2048, 16, 16, 256), bf, True, None, None),
              ((2, 512, 24, 8, 64), f32, True, None, None)]
     for (B, S, H, KV, D), dt, causal, window, cap in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)

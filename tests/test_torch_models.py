@@ -11,9 +11,8 @@ sum in other orders).  The cache positions are integers and must be
 equal.  With the weights and the compute in bfloat16 the port's
 ``forward`` logits are held to JAX's bfloat16 logits by JAX's own
 bfloat16-against-float32 gap.  ``ModelConfig``'s derived fields and parameter counts equal the
-JAX package's for all ten configs, and a family the port does not serve
-yet (ssm, griffin) raises with its ROADMAP item; the moe families are
-held to JAX in ``test_torch_moe.py``.
+JAX package's for all ten configs; the other families are held to JAX in
+``test_torch_moe.py``, ``test_torch_ssm.py`` and ``test_torch_griffin.py``.
 """
 import dataclasses
 
@@ -202,16 +201,6 @@ def test_phi3_full_width_count():
     from repro_torch.models.base import abstract_params
     tree = abstract_params(model_layout(cfg), cfg.param_dtype)
     assert tree_bytes(tree) == 4 * 3_822_259_200
-
-
-@pytest.mark.parametrize("arch_id", [
-    a for a in ARCH_IDS if get_config(a).family in ("ssm", "griffin")])
-def test_other_families_raise_with_roadmap_item(arch_id):
-    cfg = smoke(get_config(arch_id))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        model_layout(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tdec.init_cache(cfg, 2, 8, device="cpu")
 
 
 def test_init_params_layout_and_generator():

@@ -1,9 +1,10 @@
 """The port's LM ``Server`` against the JAX package's, on the CPU.
 
 Both servers get one set of weights (the JAX ``init_params`` at
-``smoke()`` of phi3-mini-3.8b, and of granite-moe-3b-a800m and
-deepseek-v3-671b for the moe and mla_moe decode, float32, carried leaf
-for leaf) and the same requests: the scenario of ``test_train_serve.py::test_server_end_to_end``
+``smoke()`` of phi3-mini-3.8b, and of granite-moe-3b-a800m,
+deepseek-v3-671b, mamba2-2.7b and recurrentgemma-9b for the moe,
+mla_moe, ssm and griffin decode, float32, carried leaf for leaf) and the
+same requests: the scenario of ``test_train_serve.py::test_server_end_to_end``
 and the request set of ``examples/ycsb_serve.py``.  They must emit the
 same token streams (greedy argmax of float32 logits that agree to ~1e-6,
 so ties would have to fall within that; none does for these seeds), end
@@ -30,7 +31,8 @@ from repro_torch.models.base import params_from_numpy
 from repro_torch.pipeline import recover as trecover
 from torch_parity import assert_same_state
 
-ARCHS = ["phi3-mini-3.8b", "granite-moe-3b-a800m", "deepseek-v3-671b"]
+ARCHS = ["phi3-mini-3.8b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+         "mamba2-2.7b", "recurrentgemma-9b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -216,7 +216,8 @@ def test_abstract_train_state_matches_jax(kind):
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "musicgen-medium",
-                                  "granite-moe-3b-a800m", "deepseek-v3-671b"])
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "recurrentgemma-9b"])
 @pytest.mark.parametrize("shape", list(tsteps.SHAPES))
 def test_input_specs_match_jax(arch, shape):
     jcfg, tcfg = jget_config(arch), get_config(arch)
@@ -421,11 +422,12 @@ def test_straggler_watchdog(tmp_path):
     assert [a[0] for a in logged] == list(range(10))
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "recurrentgemma-9b"])
 def test_train_loop_moe_families(tmp_path, arch):
-    """``train()`` on a moe and an mla_moe config: finite losses, and a
-    run resumed after an injected failure takes up an uninterrupted run's
-    losses exactly."""
+    """``train()`` on a moe, an mla_moe, an ssm and a griffin config:
+    finite losses, and a run resumed after an injected failure takes up an
+    uninterrupted run's losses exactly."""
     cfg = smoke(get_config(arch))
     loop = ttrain.TrainLoopConfig(steps=6, ckpt_every=3,
                                   ckpt_dir=str(tmp_path / "run"),
