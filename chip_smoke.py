@@ -73,6 +73,33 @@ fence-routed shards, windows of 8192 operations.  Phases:
    a crash at each fault point, bit for bit).  Prints ops/s, window p50
    and p99 beside the single shard's, the per-shard load and imbalance,
    and with ``--profile`` device time by kernel and the busy share;
+6b. ``[mesh]``: the sharded index and the reference's other
+   ``shard_map`` parts across ranks, one process a rank
+   (``torch.multiprocessing`` spawns them; they meet through a
+   ``FileStore`` under ``build/``, every process group with a timeout;
+   the kernels are built before, so the ranks only load them; a rank
+   that fails or hangs fails the script).  ``[mesh:index]``: 4 ranks
+   sharing the card over ``gloo`` (2 shards a rank) run ``[sharded]``'s
+   32 point windows, its YCSB-E stream and its fence re-cut; every
+   rank's results equal ``[sharded]``'s bit for bit and the digests of
+   every leaf of every shard equal its states'; each rank's launches of
+   ``pi_probe``, ``bitonic_argsort`` and ``pi_range`` are printed, and
+   the window p50 beside ``[sharded]``'s (ranks that share one card
+   through ``gloo`` are no multi-card figure).  ``[mesh:durable]``: the
+   four ranks run the durable mixed stream (rank 0 writes, the snapshots
+   gathered from every rank) and crash at ``ckpt.pre_rename``; ``recover``
+   in this process equals a crash-free dispatcher over the recovered
+   windows.  ``[mesh:moe]``: granite-moe-3b-a800m's expert layer at full
+   width through ``moe_apply_shardmap`` on a (2, 2) ("data", "model")
+   mesh, 8 x 2048 tokens in float32 without TF32, drop-free, within 1e-5
+   of the largest |y| of one process's ``moe_apply`` (``lb_loss`` 1e-6).
+   ``[mesh:psum]``: ``compressed_psum`` over the 4 ranks against the same
+   arithmetic on the CPU (``q`` bit for bit, the mean and the error
+   within 1e-6).  ``[mesh:pipe]``: ``pipelined_forward`` over a 4-stage
+   axis against the stages in sequence within 1e-5.
+   ``[mesh:index:nccl]``: 1 rank over NCCL repeats ``[mesh:index]``'s
+   checks (NCCL refuses two ranks on one card: NCCL with more ranks is
+   not run);
 7. ``[overload]``: a bursty stream (write ratio 0.6, zipf 0.9) through
    ``OverloadController.run`` on the ``cuda`` backend at the 2^24-key
    index with a pending capacity of 2^14, so that the pending fill passes
@@ -192,7 +219,8 @@ fence-routed shards, windows of 8192 operations.  Phases:
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
    window on the serving, the durable, the overload and every LM serving
    path, each of them S = 8 times a window (``pi_range`` S times a
-   range-bearing window) on the sharded path, ``flash_attention_fwd``
+   range-bearing window) on the sharded path and on ``[mesh]``'s ranks
+   together, ``flash_attention_fwd``
    once an attention layer of every GQA prefill and forward (griffin's
    12 of 38) and twice one of every train step (MLA takes the plain
    attention, mamba2 has none).  The script prints its own time.
@@ -249,6 +277,14 @@ SHARD_WINDOWS = 32   # point windows through the sharded dispatcher
 SHARD_SERVE_WINDOWS = 16   # windows' worth of YCSB-E arrivals there
 SHARD_DURABLE = 12   # windows' worth of the mixed stream, durable
 OVERLOAD_WINDOWS = 16    # [overload]: windows' worth of the burst
+MESH_RANKS = 4       # [mesh]: gloo ranks sharing the card
+MESH_TIMEOUT = 900   # seconds a spawn of ranks may take
+MESH_PG_TIMEOUT = 240    # every process group's collective timeout
+MESH_CRASH = ("ckpt.pre_rename", 2)   # [mesh:durable]'s fault point, pass
+MESH_MOE_B, MESH_MOE_S = 8, 2048      # [mesh:moe]'s tokens
+MESH_MOE_CF = 6.0    # Ep / K: a capacity of every local token, drop-free
+MESH_PSUM_N = 1 << 20
+MESH_PIPE = dict(L=8, M=8, mb=256, d=1024)
 CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
                 "ckpt.mid_write", "ckpt.pre_rename")
 LM_ARCH = "phi3-mini-3.8b"
@@ -1425,18 +1461,20 @@ def _timed(fn, times):
     return call
 
 
-def drive_durable(idx, stream, B, d, crash=None, hit=1, **kw):
+def drive_durable(idx, stream, B, d, crash=None, hit=1, fresh=True, **kw):
     """``stream`` through ``Dispatcher.run`` (depth 1, ``kw`` to the
     dispatcher) with a ``Durability`` over ``d`` (per-window fsync, a
     snapshot every SNAPSHOT_EVERY windows), dying at the ``hit``-th pass of
-    fault point ``crash`` when one is given.  The collector's seal hook copies each
+    fault point ``crash`` when one is given (``fresh``: the directory
+    removed first).  The collector's seal hook copies each
     window before the WAL sees it and records the acknowledged sequence
     numbers.  Returns a dict of the sealed copies, the acknowledged seqs,
     the dispatcher and the host times of appends, fsyncs and snapshots."""
     from repro_torch import faults
     from repro_torch.pipeline import (Collector, Dispatcher, Durability,
                                       WindowConfig)
-    shutil.rmtree(d, ignore_errors=True)
+    if fresh:     # a rank other than 0 leaves the directory to rank 0
+        shutil.rmtree(d, ignore_errors=True)
     hits = [0]
 
     def hook(point):
@@ -1753,7 +1791,9 @@ def run_point_windows(state, mesh, windows):
 
 def run_sharded(args, keys_np, vals_np, ycfg, base, single_p50_ms):
     """Phase [sharded] (see the module docstring).  Returns the launch
-    counts of its point windows and its YCSB-E stream together."""
+    counts of its point windows and its YCSB-E stream together, and what
+    [mesh] holds its ranks to: the inputs, the initial state, each
+    window's results and the digests of the states."""
     import dataclasses
     from repro_torch import core as pi
     from repro_torch.core import SEARCH
@@ -1808,6 +1848,11 @@ def run_sharded(args, keys_np, vals_np, ycfg, base, single_p50_ms):
     peak = torch.cuda.max_memory_allocated() - base_mem
     n_ops = sum(w.n_arrivals for w in windows)
     lat_ms = np.array(lat) * 1e3
+    # what [mesh] holds its ranks to
+    ref = dict(state=state, mesh=mesh, windows=windows, n_ops=n_ops,
+               p50=float(np.percentile(lat_ms, 50)),
+               points=window_results(retired),
+               points_state=shard_digests(after))
     log(f"[sharded:cuda] {SHARD_WINDOWS} point windows ({n_ops} ops, "
         f"{sum(w.occupancy for w in windows)} slots) through the sharded "
         f"Dispatcher (depth 0) in {wall:.6f} s: {n_ops / wall:.1f} ops/s, "
@@ -1897,6 +1942,9 @@ def run_sharded(args, keys_np, vals_np, ycfg, base, single_p50_ms):
         SHARDS * n_win, e_launches
     for name in counts:
         counts[name] += e_launches[name]
+    ref.update(stream_in=stream, n_arrivals=len(stream),
+               stream=window_results(retired),
+               stream_state=shard_digests(disp.index))
     oracle = Oracle(*base)
     n_r, n_p = check_stream(oracle, retired, "sharded YCSB-E")
     del oracle
@@ -1941,6 +1989,8 @@ def run_sharded(args, keys_np, vals_np, ycfg, base, single_p50_ms):
         f"rebuilt on them in {t_reshard:.3f} s: load {load2.tolist()}, "
         f"imbalance {i2:.6f}")
     assert i2 < i1, (i1, i2)
+    ref.update(burst=[a.cpu().numpy() for a in burst], burst_load=load,
+               fences2=f2, load2=load2, recut_state=shard_digests(state2))
     del state2, kk, vv
 
     # -- routing drops: real ones raise, padding does not ------------------
@@ -1965,7 +2015,7 @@ def run_sharded(args, keys_np, vals_np, ycfg, base, single_p50_ms):
 
     # -- durability of the sharded kind ------------------------------------
     run_sharded_durable(state, mesh, ycfg, keys_np, B)
-    return counts
+    return counts, ref
 
 
 def run_sharded_durable(state, mesh, ycfg, keys_np, B):
@@ -1974,14 +2024,10 @@ def run_sharded_durable(state, mesh, ycfg, keys_np, B):
     and after a crash at each fault point equals a sharded dispatcher
     without durability over the recovered windows, bit for bit."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.pipeline import ArrivalConfig, make_arrivals, recover
+    from repro_torch.pipeline import recover
     d = DURABLE_DIR + "_sharded"
     os.makedirs(os.path.dirname(d), exist_ok=True)
-    stream = make_arrivals(
-        ArrivalConfig(process="poisson", rate=1e6,
-                      n_arrivals=SHARD_DURABLE * B, range_frac=0.3,
-                      span_min=1, span_max=6400, seed=SEED + 4),
-        ycfg, keys_np)
+    stream = durable_stream(ycfg, keys_np, B)
     kw = dict(mesh=mesh, capacity_factor=CAPACITY_FACTOR)
     run = drive_durable(state, stream, B, d, **kw)
     live, sealed = run["disp"].index, run["sealed"]
@@ -2008,6 +2054,475 @@ def run_sharded_durable(state, mesh, ycfg, keys_np, B):
                           "sharded:durable", **kw):
         pass
     shutil.rmtree(d)
+
+
+# ---------------------------------------------------------------------------
+# [mesh]: the fence-sharded index and the shard_map parts across ranks
+# ---------------------------------------------------------------------------
+
+def shard_digests(state) -> dict:
+    """``(leaf, global shard) -> sha256`` of every leaf's slice of each
+    shard this process holds (``PIIndex.tree_flatten`` order), and the
+    fences' digest under ``("fences", -1)``."""
+    import hashlib
+    from repro_torch.core import index as tpi
+    out = {}
+    for i, x in enumerate(tpi.flat_leaves(state.shards)):
+        host = x.cpu().numpy()
+        for j in range(host.shape[0]):
+            out[(i, state.first + j)] = hashlib.sha256(
+                np.ascontiguousarray(host[j]).tobytes()).hexdigest()
+    out[("fences", -1)] = hashlib.sha256(
+        state.fences.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def window_results(retired) -> list:
+    """The host arrays of retired windows that the ranks must reproduce."""
+    return [tuple(getattr(r, f) for f in ("found", "val", "rcnt", "rsum"))
+            + (r.rebuilt, r.rebuilt_incremental, r.pending_fill)
+            for r in retired]
+
+
+def same_results(a, b) -> bool:
+    return len(a) == len(b) and all(
+        (x is None and y is None) or np.array_equal(x, y)
+        for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def durable_stream(ycfg, keys_np, B):
+    """The mixed stream of the sharded durable paths (SHARD_DURABLE
+    windows' worth, 30 % scans)."""
+    from repro_torch.pipeline import ArrivalConfig, make_arrivals
+    return make_arrivals(
+        ArrivalConfig(process="poisson", rate=1e6,
+                      n_arrivals=SHARD_DURABLE * B, range_frac=0.3,
+                      span_min=1, span_max=6400, seed=SEED + 4),
+        ycfg, keys_np)
+
+
+def state_after(idx, stream, B, n, **kw):
+    """The state of a depth-0 dispatcher without durability after the
+    first ``n`` windows the collector seals from ``stream``."""
+    import types
+    from repro_torch.pipeline import Dispatcher, WindowConfig
+    seen, got = [0], [idx if n == 0 else None]
+
+    def on_seal(w):
+        seen[0] += 1
+        w.seq = seen[0]
+        return w.seq
+
+    def maybe_snapshot(index, seq):
+        if seq == n:
+            got[0] = index
+
+    hook = types.SimpleNamespace(on_seal=on_seal,
+                                 maybe_snapshot=maybe_snapshot,
+                                 record_capacity_factor=lambda cf: None)
+    Dispatcher(idx, depth=0, max_span=MAX_SPAN, durability=hook,
+               **kw).run(stream, WindowConfig(batch=B))
+    assert got[0] is not None, (n, seen[0])
+    return got[0]
+
+
+def mesh_rank(rank, world, backend, tmp, programs):
+    """One rank of ``[mesh]`` (a top-level function: ``spawn`` imports
+    this file anew in every rank).  Joins the process group through a
+    ``FileStore`` under ``tmp``, runs ``programs`` on the card and writes
+    its results to ``tmp/<backend>-rank<r>.pkl``."""
+    import datetime
+    import pickle
+    import torch.distributed as tdist
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=MESH_PG_TIMEOUT)
+    store = tdist.FileStore(os.path.join(tmp, f"store-{backend}-{world}"),
+                            world)
+    tdist.init_process_group(backend, store=store, rank=rank,
+                             world_size=world, timeout=timeout)
+    out = {}
+    try:
+        from repro_torch.launch import mesh as lmesh
+        dm = lmesh.make_mesh((world,), ("data",), device_type=DEVICE,
+                             timeout=timeout)
+        if "index" in programs:
+            out.update(mesh_index(rank, dm, tmp, "durable" in programs))
+        if "moe" in programs:
+            out["moe"] = mesh_moe(lmesh.make_mesh(
+                (2, world // 2), ("data", "model"), device_type=DEVICE,
+                timeout=timeout))
+        if "psum" in programs:
+            out["psum"] = mesh_psum(rank, lmesh.make_mesh(
+                (world,), ("pod",), device_type=DEVICE, timeout=timeout))
+        if "pipe" in programs:
+            out["pipe"] = mesh_pipe(lmesh.make_mesh(
+                (world,), ("stage",), device_type=DEVICE, timeout=timeout))
+        torch.cuda.synchronize()
+        with open(os.path.join(tmp, f"{backend}-rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        tdist.destroy_process_group()
+
+
+def mesh_index(rank, dm, tmp, durable):
+    """[sharded]'s windows, YCSB-E stream and fence re-cut on this rank's
+    shards; with ``durable`` the mixed stream with a ``Durability`` and a
+    crash at ``MESH_CRASH``."""
+    import pickle
+    from repro_torch import core as pi
+    from repro_torch.pipeline import PipelineMetrics
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    keys_np = np.load(os.path.join(tmp, "keys.npy"))
+    vals_np = np.load(os.path.join(tmp, "vals.npy"))
+    B = inp["B"]
+    cfg = shard_config(len(keys_np))
+    mesh = pi.make_mesh((SHARDS,), ("data",), device=DEVICE, device_mesh=dm)
+    t0 = time.perf_counter()
+    state = pi.build_sharded(cfg, SHARDS, keys_np, vals_np, mesh=mesh)
+    torch.cuda.synchronize()
+    out = dict(t_build=time.perf_counter() - t0,
+               shards=list(range(state.first,
+                                 state.first + state.shards.keys.shape[0])))
+    windows = inp["windows"]
+    run_point_windows(state, mesh, windows[:2])       # warm-up
+    reset_launches()
+    retired, lat, wall, after = run_point_windows(state, mesh, windows)
+    out["point_launches"] = launch_counts()
+    out["points"] = window_results(retired)
+    out["lat"], out["wall"] = lat, wall
+    out["points_state"] = shard_digests(after)
+    del retired, after
+
+    kw = dict(mesh=mesh, capacity_factor=CAPACITY_FACTOR)
+    met = PipelineMetrics()
+    reset_launches()
+    disp, retired, wall = serve(state, inp["stream"], B, met, **kw)
+    out["stream_launches"] = launch_counts()
+    out["stream"] = window_results(retired)
+    out["stream_wall"] = wall
+    out["stream_state"] = shard_digests(disp.index)
+    del disp, retired
+
+    burst = [torch.from_numpy(a).to(DEVICE) for a in inp["burst"]]
+    _, (found, _), load, dropped = pi.execute_sharded(
+        state, mesh, *burst, capacity_factor=SHARDS)
+    assert bool(found.all()) and int(dropped.sum()) == 0
+    load = load.cpu().numpy()
+    f2 = pi.rebalance_from_load(state.fences.cpu().numpy(), load,
+                                smoothing=1.0, key_lo=0,
+                                key_hi=inp["key_space"])
+    kk, vv = pi.collect_pairs(state)
+    state2 = pi.build_sharded(cfg, SHARDS, kk, vv, fences=f2, mesh=mesh)
+    _, (found2, _), load2, _ = pi.execute_sharded(
+        state2, mesh, *burst, capacity_factor=SHARDS)
+    assert bool(found2.all())
+    out.update(burst_load=load, fences2=f2, load2=load2.cpu().numpy(),
+               recut_state=shard_digests(state2))
+    del state2, kk, vv
+
+    if durable:
+        reset_launches()
+        run = drive_durable(state, inp["durable_stream"], B,
+                            os.path.join(tmp, "durable"), crash=MESH_CRASH[0],
+                            hit=MESH_CRASH[1], fresh=rank == 0, **kw)
+        out["durable_launches"] = launch_counts()
+        out["durable"] = dict(sealed=len(run["sealed"]), acked=run["acked"],
+                              wall=run["wall"])
+    return out
+
+
+def moe_weights(cfg, seed):
+    """granite-moe's expert layer at full width and MESH_MOE_B x
+    MESH_MOE_S tokens' activations, float32, from a CPU generator (the
+    same on every rank)."""
+    g = torch.Generator().manual_seed(seed)
+    d, f, Ep = cfg.d_model, cfg.d_ff_expert, cfg.experts_padded
+
+    def draw(*shape, fan):
+        return (torch.randn(shape, generator=g) / fan ** 0.5).to(DEVICE)
+
+    p = dict(router=draw(d, cfg.n_experts, fan=d),
+             w_gate=draw(Ep, d, f, fan=d), w_up=draw(Ep, d, f, fan=d),
+             w_down=draw(Ep, f, d, fan=f))
+    x = torch.randn((MESH_MOE_B, MESH_MOE_S, d), generator=g).to(DEVICE)
+    return p, x
+
+
+def mesh_moe(dm):
+    """``moe_apply_shardmap`` on a (2, 2) ("data", "model") mesh."""
+    import dataclasses
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              moe_capacity=MESH_MOE_CF)
+    p, x = moe_weights(cfg, SEED + 21)
+    with shd.use_mesh(dm):
+        y, lb = moe.moe_apply_shardmap(cfg, p, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe.moe_apply_shardmap(cfg, p, x)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return dict(y=y.cpu().numpy(), lb=lb.item(), ms=ms)
+
+
+def psum_inputs(world):
+    g = torch.Generator().manual_seed(SEED + 22)
+    return (torch.randn((world, MESH_PSUM_N), generator=g),
+            1e-3 * torch.randn((world, MESH_PSUM_N), generator=g))
+
+
+def mesh_psum(rank, dm):
+    from repro_torch import optim
+    from repro_torch import sharding as shd
+    x, err = psum_inputs(dm.size())
+    with shd.use_mesh(dm):
+        mean, new_err = optim.compressed_psum(x[rank].to(DEVICE), "pod",
+                                              err[rank].to(DEVICE))
+    q, scale = optim.quantize_int8(x[rank].to(DEVICE) + err[rank].to(DEVICE))
+    return dict(mean=mean.cpu().numpy(), err=new_err.cpu().numpy(),
+                q=q.cpu().numpy(), scale=scale.item())
+
+
+def pipe_inputs():
+    g = torch.Generator().manual_seed(SEED + 23)
+    L, M, mb, d = MESH_PIPE["L"], MESH_PIPE["M"], MESH_PIPE["mb"], \
+        MESH_PIPE["d"]
+    return (torch.randn((L, d, d), generator=g) / d ** 0.5,
+            torch.randn((M, mb, d), generator=g))
+
+
+def pipe_stage(p_stage, h):
+    for w in p_stage:
+        h = torch.tanh(h @ w)
+    return h
+
+
+def mesh_pipe(dm):
+    from repro_torch.models.pipeline import pipelined_forward, stage_split
+    W, x = (t.to(DEVICE) for t in pipe_inputs())
+    return pipelined_forward(dm, "stage", pipe_stage,
+                             stage_split(W, dm.size()), x).cpu().numpy()
+
+
+def spawn_ranks(world, backend, tmp, programs):
+    """``world`` ranks of ``mesh_rank`` (``torch.multiprocessing``,
+    spawned); a rank that raises fails the others and the phase, and
+    ranks alive after ``MESH_TIMEOUT`` seconds are killed and fail it.
+    Returns each rank's results."""
+    import pickle
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(mesh_rank, args=(world, backend, tmp, programs),
+                             nprocs=world, join=False, start_method="spawn")
+    t_end = time.perf_counter() + MESH_TIMEOUT
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > t_end:
+                raise RuntimeError(f"[mesh] {world} {backend} ranks alive "
+                                   f"after {MESH_TIMEOUT} s: a rank hangs")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{backend}-rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def check_mesh_index(tag, ref, outs):
+    """Every rank's windows, stream and re-cut against [sharded]'s one
+    process: results bit for bit on every rank, state digests by shard;
+    launch counts: each rank's shards, once a window."""
+    P = len(outs)
+    for name in ("points", "stream"):
+        for r, o in enumerate(outs):
+            assert same_results(o[name], ref[name]), \
+                f"{tag} rank {r}: {name} results != [sharded]'s"
+    for name in ("points_state", "stream_state", "recut_state"):
+        got = {}
+        for o in outs:
+            got.update(o[name])
+        assert got == ref[name], f"{tag}: {name} digests != [sharded]'s"
+    for r, o in enumerate(outs):
+        for name in ("burst_load", "fences2", "load2"):
+            assert np.array_equal(o[name], ref[name]), f"{tag} {name}"
+    L = SHARDS // P
+    n_range = sum(w[2] is not None for w in ref["stream"])
+    for r, o in enumerate(outs):
+        pl, sl = o["point_launches"], o["stream_launches"]
+        assert pl["pi_probe"] == pl["bitonic_sort"] == L * SHARD_WINDOWS \
+            and pl["pi_range"] == 0, (tag, r, pl)
+        assert sl["pi_probe"] == sl["bitonic_sort"] == L * len(ref["stream"])\
+            and sl["pi_range"] == L * n_range > 0, (tag, r, sl)
+        log(f"{tag} rank {r} (shards {o['shards']}): kernel launches on the "
+            f"point windows {pl}, on the YCSB-E stream {sl}")
+    lat = np.array(outs[0]["lat"]) * 1e3
+    n_ops = ref["n_ops"]
+    return dict(p50=float(np.percentile(lat, 50)),
+                p99=float(np.percentile(lat, 99)),
+                ops_s=n_ops / outs[0]["wall"],
+                stream_s=ref["n_arrivals"] / outs[0]["stream_wall"])
+
+
+def run_mesh(ref, keys_np, vals_np, ycfg):
+    """Phase [mesh] (see the module docstring).  Returns the kernel
+    launches of the ranks' main paths, summed over the ranks."""
+    import pickle
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.pipeline import recover
+    B = ycfg.batch
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh-", dir=build_dir)
+    counts = {}
+    try:
+        np.save(os.path.join(tmp, "keys.npy"), keys_np)
+        np.save(os.path.join(tmp, "vals.npy"), vals_np)
+        dstream = durable_stream(ycfg, keys_np, B)
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(dict(B=B, windows=ref["windows"],
+                             stream=ref["stream_in"], burst=ref["burst"],
+                             key_space=ycfg.key_space,
+                             durable_stream=dstream), f)
+        t0 = time.perf_counter()
+        outs = spawn_ranks(MESH_RANKS, "gloo", tmp,
+                           ["index", "durable", "moe", "psum", "pipe"])
+        t_gloo = time.perf_counter() - t0
+        gloo = check_mesh_index("[mesh:index]", ref, outs)
+        for o in outs:
+            for name in ("point_launches", "stream_launches",
+                         "durable_launches"):
+                for k, v in o[name].items():
+                    counts[k] = counts.get(k, 0) + v
+        log(f"[mesh:index] {MESH_RANKS} ranks over gloo on one card "
+            f"({SHARDS // MESH_RANKS} shards a rank, all_to_all_single and "
+            f"all_gather staged through the host), {SHARD_WINDOWS} point "
+            f"windows, a YCSB-E stream of {ref['n_arrivals']} arrivals and "
+            f"a fence re-cut: every rank's results equal [sharded]'s bit "
+            f"for bit, and the state digests of every leaf of every shard "
+            f"after the windows, the stream and the re-cut equal its "
+            f"own; the phase took {t_gloo:.3f} s with the spawn")
+        log(f"[mesh:index] window latency p50 {gloo['p50']:.6f} ms p99 "
+            f"{gloo['p99']:.6f} ms ({gloo['ops_s']:.1f} ops/s; YCSB-E "
+            f"{gloo['stream_s']:.1f} arrivals/s) at P = {MESH_RANKS} over "
+            f"gloo, beside [sharded]'s one process: p50 "
+            f"{ref['p50']:.6f} ms.  {MESH_RANKS} ranks sharing one card "
+            f"through gloo are not a multi-card figure")
+
+        # -- [mesh:durable]: the crash at four ranks, recovered at one ----
+        d = os.path.join(tmp, "durable")
+        dur = outs[0]["durable"]
+        assert all(o["durable"]["acked"] == dur["acked"] for o in outs)
+        rec, tail = recover(d, device=DEVICE)
+        step = CheckpointManager(os.path.join(d, "ckpt")).latest_step()
+        n_applied = step + len(tail)
+        acked = dur["acked"][-1] if dur["acked"] else 0
+        assert n_applied == acked == dur["sealed"], \
+            (n_applied, acked, dur["sealed"])
+        want = state_after(ref["state"], dstream, B, n_applied,
+                           mesh=ref["mesh"], capacity_factor=CAPACITY_FACTOR)
+        assert rec.n_shards == SHARDS and same_state(rec, want), \
+            "[mesh:durable] recover != the crash-free state"
+        log(f"[mesh:durable] {MESH_RANKS} ranks with a Durability (rank 0 "
+            f"writes, the snapshots gathered from every rank) crash at "
+            f"{MESH_CRASH[0]} (pass {MESH_CRASH[1]}) after {dur['sealed']} "
+            f"sealed windows, {acked} acknowledged; recover at P = 1 "
+            f"(snapshot {step} + {len(tail)} windows) equals a crash-free "
+            f"dispatcher over those windows bit for bit")
+        del rec, want
+
+        # -- [mesh:moe] ---------------------------------------------------
+        import dataclasses
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  moe_capacity=MESH_MOE_CF)
+        p, x = moe_weights(cfg, SEED + 21)
+        with moe.record_drops() as drops:
+            y0, lb0 = moe.moe_apply(cfg, p, x)
+        assert int(sum(drops)) == 0, "[mesh:moe] the reference dropped"
+        y0 = y0.cpu().numpy()
+        top = float(np.abs(y0).max())
+        err = max(float(np.abs(o["moe"]["y"] - y0).max()) for o in outs)
+        lb_err = max(abs(o["moe"]["lb"] - lb0.item()) for o in outs)
+        del p, x
+        assert err <= 1e-5 * top and lb_err <= 1e-6, (err, top, lb_err)
+        log(f"[mesh:moe] {MOE_ARCH}'s expert layer at full width (d "
+            f"{cfg.d_model}, {cfg.n_experts} experts padded to "
+            f"{cfg.experts_padded}, top {cfg.top_k}, width "
+            f"{cfg.d_ff_expert}) on {MESH_MOE_B} x {MESH_MOE_S} tokens in "
+            f"float32 (TF32 off), drop-free, on a (2, {MESH_RANKS // 2}) "
+            f"(data, model) mesh of gloo ranks: max |y - moe_apply| "
+            f"{err:.6e} = {err / top:.6e} of the largest |y| {top:.6f} "
+            f"(bar 1e-5), lb_loss {lb_err:.3e} apart (bar 1e-6); "
+            f"{outs[0]['moe']['ms']:.3f} ms a call on rank 0")
+
+        # -- [mesh:psum] ----------------------------------------------------
+        from repro_torch import optim
+        xs, errs = psum_inputs(MESH_RANKS)
+        deq, qs, new_errs, scales = [], [], [], []
+        for r in range(MESH_RANKS):
+            xf = xs[r] + errs[r]
+            q, scale = optim.quantize_int8(xf)
+            qs.append(q.numpy())
+            scales.append(scale.item())
+            deq.append(q.float() * scale)
+            new_errs.append((xf - deq[-1]).numpy())
+        mean = (sum(deq[1:], deq[0]) / MESH_RANKS).numpy()
+        m_err = max(float(np.abs(o["psum"]["mean"] - mean).max())
+                    for o in outs)
+        e_err = max(float(np.abs(o["psum"]["err"] - new_errs[r]).max())
+                    for r, o in enumerate(outs))
+        s_err = max(abs(o["psum"]["scale"] - scales[r]) / scales[r]
+                    for r, o in enumerate(outs))
+        for r, o in enumerate(outs):
+            assert np.array_equal(o["psum"]["q"], qs[r]), "[mesh:psum] q"
+        assert m_err <= 1e-6 and e_err <= 1e-6, (m_err, e_err)
+        log(f"[mesh:psum] compressed_psum of {MESH_PSUM_N} float32 values "
+            f"over {MESH_RANKS} gloo ranks against the same call on the "
+            f"CPU: q bit for bit, the mean {m_err:.3e} and the carried "
+            f"error {e_err:.3e} apart (bar 1e-6; the scales {s_err:.3e} "
+            f"apart relative)")
+
+        # -- [mesh:pipe] ----------------------------------------------------
+        W, xm = (t.to(DEVICE) for t in pipe_inputs())
+        seq = pipe_stage(W, xm).cpu().numpy()
+        p_err = max(float(np.abs(o["pipe"] - seq).max()) for o in outs)
+        assert p_err <= 1e-5, p_err
+        log(f"[mesh:pipe] pipelined_forward over a {MESH_RANKS}-stage axis "
+            f"of gloo ranks ({MESH_PIPE['L']} layers tanh(h W) of "
+            f"{MESH_PIPE['d']}, {MESH_PIPE['M']} microbatches of "
+            f"{MESH_PIPE['mb']}): max |y - the stages in sequence| "
+            f"{p_err:.3e} (bar 1e-5)")
+
+        # -- [mesh:index:nccl]: one rank over NCCL ---------------------------
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(1, "nccl", tmp, ["index"])
+        t_nccl = time.perf_counter() - t0
+        one = check_mesh_index("[mesh:index:nccl]", ref, nccl)
+        for name in ("point_launches", "stream_launches"):
+            for k, v in nccl[0][name].items():
+                counts[k] = counts.get(k, 0) + v
+        log(f"[mesh:index:nccl] 1 rank over NCCL (the communicator's "
+            f"all_to_all_single and all_gather on the card): every result "
+            f"and state digest equals [sharded]'s; window p50 "
+            f"{one['p50']:.6f} ms p99 {one['p99']:.6f} ms beside "
+            f"[sharded]'s {ref['p50']:.6f} ms; {t_nccl:.3f} s with the "
+            f"spawn.  NCCL refuses two ranks on one card, so NCCL with "
+            f"P > 1 is not run here")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
 
 
 def same_report(a, b) -> bool:
@@ -3422,8 +3937,13 @@ def main(argv=None) -> int:
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 6. the sharded path ----------------------------------------------
-    sharded_launches = run_sharded(args, keys_np, vals_np, ycfg, base,
-                                   single_p50)
+    sharded_launches, mesh_ref = run_sharded(args, keys_np, vals_np, ycfg,
+                                             base, single_p50)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 6b. the mesh: the sharded index and shard_map parts over ranks ----
+    mesh_launches = run_mesh(mesh_ref, keys_np, vals_np, ycfg)
+    del mesh_ref
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 7. overload control ------------------------------------------------
@@ -3510,8 +4030,11 @@ def main(argv=None) -> int:
         2 * GRIFFIN_TRAIN_GROUPS * TRAIN_STEPS, train_griffin_launches
     assert ssm_launches["flash_attention_fwd"] == 0 == \
         train_ssm_launches["flash_attention_fwd"]
+    assert mesh_launches["pi_probe"] == mesh_launches["bitonic_sort"] >= \
+        2 * SHARDS * SHARD_WINDOWS and mesh_launches["pi_range"] >= \
+        2 * SHARDS, mesh_launches
     paths = (launches, serve_launches, durable_launches, sharded_launches,
-             overload_launches, lm_launches, serve_lm_launches,
+             mesh_launches, overload_launches, lm_launches, serve_lm_launches,
              train_launches, moe_launches, serve_moe_launches,
              train_moe_launches, ssm_launches, serve_ssm_launches,
              train_ssm_launches, griffin_launches, serve_griffin_launches,

@@ -8,7 +8,7 @@ Public surface:
   from_numpy_leaves, to_numpy_leaves, flat_leaves,
   from_flat_leaves, leaf_spec                              (state transfer)
   ShardedPIIndex, build_sharded, execute_sharded, make_sharded_executor,
-  make_mesh, Mesh                                          (S shards, one card)
+  make_mesh, Mesh, gather_shards                     (S shards on P ranks)
   rebalance_from_load / rebalance_from_sample              (NUMA analogue)
   RefIndex                                                 (oracle)
 """
@@ -24,7 +24,8 @@ from repro_torch.core.index import (
 )
 from repro_torch.core.distributed import (
     Mesh, ShardedPIIndex, build_sharded, collect_pairs, dispatch_plan,
-    execute_sharded, leaf_spec_sharded, make_mesh, make_sharded_executor,
+    execute_sharded, gather_shards, leaf_spec_sharded, make_mesh,
+    make_sharded_executor,
     maybe_rebuild_sharded, maybe_rebuild_shards, rebuild_sharded,
     scatter_to_buffer, shard_of, stack_shards,
 )
@@ -47,6 +48,7 @@ __all__ = [
     "execute_sharded", "make_sharded_executor", "rebuild_sharded",
     "maybe_rebuild_sharded", "maybe_rebuild_shards", "collect_pairs",
     "dispatch_plan", "scatter_to_buffer", "Mesh", "make_mesh",
+    "gather_shards",
     "leaf_spec_sharded", "shard_of", "stack_shards",
     "rebalance_from_load", "rebalance_from_sample", "load_imbalance",
     "RefIndex",

@@ -1,41 +1,51 @@
-"""ShardedPIIndex — the paper's NUMA-aware partitioning, on one card.
+"""ShardedPIIndex — the paper's NUMA-aware partitioning, over ranks.
 
 Counterpart of ``repro.core.distributed``, held to it bit for bit.  Paper
 §4.3.1: the key space is range-partitioned across NUMA nodes; each node
 builds an independent sub-index from its own keys; queries are routed to
 the owning node and processed entirely in local memory.
 
-Mapping onto one device:
+Mapping:
 
 * NUMA node      → a shard: a ``PIIndex`` whose leaves carry a leading
-                   shard dimension S, in the JAX leaf order (``levels`` a
-                   tuple of (S, n_l) tensors)
-* query routing  → bucketize by fence keys, then a dest-major, key-minor
-                   stable sort into ``cap``-slot send buckets — the body
-                   of the JAX ``_local_execute``, run for every source
-                   shard's slice of the global batch at once
-* ``all_to_all`` → a transpose of the stacked send buffers, (S_src, S_dst,
-                   cap) → (S_dst, S_src, cap), so that destination d runs
-                   its lanes in (source, rank) order as under ``shard_map``;
-                   results return by the inverse transpose and a scatter to
-                   each query's source position
-* shard-local execution → ``core.index.execute_impl`` on each shard's
-                   S * cap lanes, in a Python loop over the shards (on the
-                   ``cuda`` backend: one ``bitonic_argsort`` and one
-                   ``pi_probe`` a shard a window)
+                   shard dimension, in the JAX leaf order (``levels`` a
+                   tuple of (L, n_l) tensors).  S shards lie on P ranks
+                   (S % P == 0), one process a rank along the mesh's
+                   ``data`` axis; rank r holds the L = S/P shards
+                   [r L, (r+1) L) on its device.  P = 1 is the one-card
+                   layout, S = P the reference's one shard a device.
+* query routing  → every rank runs the same host program on the same
+                   global batch, as multi-controller JAX does; a rank
+                   routes the slices of its L source shards: bucketize by
+                   fence keys, then a dest-major, key-minor stable sort
+                   into ``cap``-slot send buckets — the body of the JAX
+                   ``_local_execute``
+* ``all_to_all`` → one ``all_to_all_single`` each way on the axis's
+                   process group, the three operand buffers packed as
+                   int32 words (a float32 key travels as its bits); each
+                   destination shard receives its lanes in global
+                   (source, rank) order, the order ``shard_map``'s
+                   ``all_to_all`` gives.  With P = 1 and no process group
+                   the exchange is a transpose on the card.
+* shard-local execution → ``core.index.execute_impl`` on each local
+                   shard's S * cap lanes (on the ``cuda`` backend: one
+                   ``bitonic_argsort`` and one ``pi_probe`` a shard a
+                   window)
+* results        → ``found``, ``val``, ``load`` and ``dropped`` are
+                   gathered (one ``all_gather``), so that every rank holds
+                   them whole, as JAX returns global arrays; so are the
+                   rebuild flags and ``collect_pairs``' pairs
 * self-adjusted threading → capacity-factored dispatch + fence rebalancing
-                   (``core.rebalance``)
+                   (``core.rebalance``) over the gathered loads
 
-A ``Mesh`` here is S shards on one device along one named axis
-(``make_mesh``).  Shards across several cards need an ``all_to_all`` over
-``torch.distributed`` (ROADMAP A9), and a mesh over more than one device
-is refused.  Like ``execute_impl``, nothing here writes to the tensors of
-its input state.
+A ``Mesh`` here names the shard axes and the device; with a
+``DeviceMesh`` (``launch.mesh``) it also names the ranks.  Like
+``execute_impl``, nothing here writes to the tensors of its input state.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,47 +53,77 @@ import torch
 from repro_torch.core import index as pi
 from repro_torch.core.batch import SEARCH
 from repro_torch.kernels.pi_search import sentinel_for, torch_dtype
+from repro_torch.sharding import (group_all_gather, group_all_to_all,
+                                  group_rank, group_size)
 
 _I32 = torch.int32
 
-MULTI_DEVICE = ("a mesh over more than one device needs an all_to_all over "
-                "torch.distributed, not ported yet (ROADMAP A9, multi-GPU)")
-
 
 # ---------------------------------------------------------------------------
-# the mesh: S shards on one device
+# the mesh: S shards on P ranks
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named axes of shards that all live on ``device``."""
+    """Named axes of shards on ``device``; with ``device_mesh`` (a
+    ``torch.distributed`` ``DeviceMesh`` of the same axis names) the
+    shards of an axis are spread over that axis's ranks."""
 
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     device: torch.device
+    device_mesh: Optional[object] = None
 
     @property
     def shape(self) -> dict:
-        """Axis name → size, as ``jax.sharding.Mesh.shape``."""
+        """Axis name → shard count, as ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    def group(self, axis_name: str):
+        """The process group of ``axis_name`` (None: one rank, no
+        process group)."""
+        if self.device_mesh is None:
+            return None
+        return self.device_mesh.get_group(axis_name)
 
-def make_mesh(axis_shapes, axis_names, device=None) -> Mesh:
+    def ranks(self, axis_name: str) -> int:
+        """How many ranks ``axis_name``'s shards are spread over."""
+        if self.device_mesh is None:
+            return 1
+        names = tuple(self.device_mesh.mesh_dim_names)
+        return int(self.device_mesh.size(names.index(axis_name)))
+
+
+def make_mesh(axis_shapes, axis_names, device=None,
+              device_mesh=None) -> Mesh:
     """A mesh of ``axis_shapes`` shards on ``device`` (default: the card).
 
-    ``device`` may be one device or a sequence of them; a sequence that
-    names more than one device raises ``NotImplementedError``.
+    ``device_mesh`` spreads each axis's shards over that axis's ranks;
+    every axis must then be one of its axes, with a shard count that its
+    rank count divides.  ``device`` may be one device or a sequence that
+    names one; a sequence of several devices is several ranks, which a
+    ``device_mesh`` over an initialized process group names instead
+    (``ValueError``).
     """
     if isinstance(device, (list, tuple)):
         devices = {torch.device(d) for d in device}
         if len(devices) > 1:
-            raise NotImplementedError(MULTI_DEVICE)
+            raise ValueError(
+                f"a mesh over {len(devices)} devices is one process a "
+                f"device: initialize the torch.distributed process group "
+                f"and pass device_mesh=launch.mesh.make_mesh(...) with "
+                f"this process's device")
         device = next(iter(devices), None)
     if len(axis_shapes) != len(axis_names):
         raise ValueError(f"{len(axis_shapes)} axis sizes for "
                          f"{len(axis_names)} axis names")
-    return Mesh(tuple(int(s) for s in axis_shapes), tuple(axis_names),
-                pi._device(device))
+    mesh = Mesh(tuple(int(s) for s in axis_shapes), tuple(axis_names),
+                pi._device(device), device_mesh)
+    for name, size in mesh.shape.items():
+        if device_mesh is not None and size % mesh.ranks(name):
+            raise ValueError(f"axis {name!r}: {size} shards do not divide "
+                             f"over {mesh.ranks(name)} ranks")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -145,28 +185,41 @@ def scatter_to_buffer(arr: torch.Tensor, order: torch.Tensor,
 
 @dataclasses.dataclass
 class ShardedPIIndex:
-    """Stacked per-shard PIIndex + replicated fence keys.
+    """This rank's stacked shards + replicated fence keys.
 
-    ``shards`` leaves have leading dim S (the data-axis size); ``fences``
-    has S+1 entries with fences[0] = dtype.min and fences[S] = sentinel.
-    Shard s owns keys in [fences[s], fences[s+1]).
+    ``shards`` leaves have leading dim L = S / P, the rank's shards
+    [rank * L, (rank + 1) * L) of the S = ``n_shards``; ``group`` is the
+    process group of the P ranks (None: P = 1).  ``fences`` has S+1
+    entries with fences[0] = dtype.min and fences[S] = sentinel.  Shard s
+    owns keys in [fences[s], fences[s+1]).
     """
 
-    shards: pi.PIIndex          # stacked: every leaf (S, ...)
+    shards: pi.PIIndex          # stacked: every leaf (L, ...)
     fences: torch.Tensor        # (S+1,)
     n_shards: int
+    group: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
         return self.shards.device
 
+    @property
+    def n_ranks(self) -> int:
+        return group_size(self.group)
+
+    @property
+    def first(self) -> int:
+        """The global index of this rank's first shard."""
+        return group_rank(self.group) * (self.n_shards // self.n_ranks)
+
     def live_count(self) -> torch.Tensor:
-        """(S,) live keys per shard."""
+        """(S,) live keys per shard, gathered from every rank."""
         sh = self.shards
         sent = sentinel_for(sh.keys.dtype)
         main = ((sh.keys != sent) & ~sh.tomb).sum(-1)
         pidx = torch.arange(sh.pkeys.shape[-1], device=self.device)
-        return main + ((pidx < sh.pn[:, None]) & ~sh.ptomb).sum(-1)
+        local = main + ((pidx < sh.pn[:, None]) & ~sh.ptomb).sum(-1)
+        return group_all_gather(local, self.group).reshape(-1)
 
 
 def shard_of(shards: pi.PIIndex, s: int) -> pi.PIIndex:
@@ -192,11 +245,39 @@ def stack_shards(parts, views=None, stacked=None) -> pi.PIIndex:
     return pi.from_flat_leaves(parts[0].config, out)
 
 
+def gather_shards(shards: pi.PIIndex, group) -> pi.PIIndex:
+    """Every rank's stacked shards as one index of S stacked shards (on
+    every rank), leaf by leaf in ``PIIndex.tree_flatten`` order."""
+    if group is None:
+        return shards
+    return pi.from_flat_leaves(
+        shards.config,
+        [group_all_gather(x, group).flatten(0, 1)
+         for x in pi.flat_leaves(shards)])
+
+
+def local_block(x, n_shards: int, group):
+    """This rank's block of a leading dim of S entries."""
+    if group is None:
+        return x
+    L = n_shards // group_size(group)
+    r = group_rank(group)
+    return x[r * L:(r + 1) * L]
+
+
 def build_sharded(cfg: pi.PIConfig, n_shards: int, keys, vals,
-                  fences=None, device=None) -> ShardedPIIndex:
+                  fences=None, device=None, mesh: Optional[Mesh] = None,
+                  axis_name: str = "data") -> ShardedPIIndex:
     """Host-side build: partition by fences (default: equi-depth) and
-    stack, on ``device`` (default: the card)."""
-    dev = pi._device(device)
+    stack, on ``device`` (default: the mesh's, else the card).  With a
+    ``mesh`` over ranks, every rank gives the same keys and builds only
+    its own shards."""
+    group = mesh.group(axis_name) if mesh is not None else None
+    dev = mesh.device if mesh is not None and device is None \
+        else pi._device(device)
+    P = group_size(group)
+    if n_shards % P:
+        raise ValueError(f"{n_shards} shards do not divide over {P} ranks")
     keys = np.asarray(keys)
     vals = np.asarray(vals)
     order = np.argsort(keys)
@@ -211,14 +292,16 @@ def build_sharded(cfg: pi.PIConfig, n_shards: int, keys, vals,
         hi = sentinel_for(kdt)    # top fence == the engine pad key
         fences = np.array([lo, *cuts, hi], dtype=kdt)
     fences = np.asarray(fences, dtype=kdt)
+    L = n_shards // P
+    first = group_rank(group) * L
     parts = []
-    for s in range(n_shards):
+    for s in range(first, first + L):
         m = (keys >= fences[s]) & (keys < fences[s + 1]) if s + 1 < n_shards \
             else (keys >= fences[s])
         parts.append(pi.build(cfg, keys[m], vals[m], device=dev))
     return ShardedPIIndex(shards=stack_shards(parts),
                           fences=torch.from_numpy(fences).to(dev),
-                          n_shards=n_shards)
+                          n_shards=n_shards, group=group)
 
 
 def leaf_spec_sharded(cfg: pi.PIConfig, n_shards: int):
@@ -237,22 +320,45 @@ def leaf_spec_sharded(cfg: pi.PIConfig, n_shards: int):
 # routing → execution → routing back
 # ---------------------------------------------------------------------------
 
-def _execute_routed(shards: pi.PIIndex, fences, ops, qkeys, qvals, cap: int,
-                    n_shards: int):
-    """Every source shard's slice routed as ``_local_execute`` routes it,
-    each destination shard executed, the results routed back.
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """A 4-byte tensor as int32 words (a float32 key keeps its bits)."""
+    return x if x.dtype == _I32 else x.view(_I32)
 
-    Returns ``(new_shards, found, val, load, dropped)``: ``load[d]`` the
-    real queries shard d received, ``dropped[s]`` the real queries of
-    source s that overflowed a bucket (sentinel padding routes to the
-    last shard and sorts after the real keys there, so it is evicted
-    first and its loss is not counted).
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """The all_to_all of stacked buffers ``(k, L_src, S, cap)`` →
+    ``(k, L_dst, S, cap)``: local source l's bucket for destination d
+    reaches d's rank, where the S source buckets of each destination
+    stand in global source order (rank-major, as ``shard_map`` puts
+    them).  Used both ways: results go back by the same exchange."""
+    k, L, S, cap = x.shape
+    P = group_size(group)
+    # (k, L_src, P, L_dst, cap) → one block per destination rank
+    send = x.reshape(k, L, P, S // P, cap).permute(2, 0, 1, 3, 4)
+    recv = group_all_to_all(send, group)    # (P_src, k, L_src, L_dst, cap)
+    return recv.permute(1, 3, 0, 2, 4).reshape(k, S // P, S, cap)
+
+
+def _execute_routed(shards: pi.PIIndex, fences, ops, qkeys, qvals, cap: int,
+                    n_shards: int, group=None):
+    """The rank's source shards' slices routed as ``_local_execute``
+    routes them, its destination shards executed, the results routed
+    back and gathered.
+
+    Returns ``(new_shards, found, val, load, dropped)``, the last four
+    global on every rank: ``load[d]`` the real queries shard d received,
+    ``dropped[s]`` the real queries of source s that overflowed a bucket
+    (sentinel padding routes to the last shard and sorts after the real
+    keys there, so it is evicted first and its loss is not counted).
     """
     S = n_shards
+    P = group_size(group)
+    L = S // P
     kdt = shards.keys.dtype
     sent = sentinel_for(kdt)
     b = ops.shape[0] // S
-    ops, qkeys, qvals = (x.reshape(S, b) for x in (ops, qkeys, qvals))
+    ops, qkeys, qvals = (local_block(x.reshape(S, b), S, group)
+                         for x in (ops, qkeys, qvals))
     k = qkeys.to(kdt)
 
     # --- outbound routing (paper: route query to owning NUMA node) --------
@@ -261,27 +367,25 @@ def _execute_routed(shards: pi.PIIndex, fences, ops, qkeys, qvals, cap: int,
     order, slot, keep, _ = dispatch_plan(dest, S, cap, sort_key=qkeys)
     n_drop = (~keep & (torch.take_along_dim(k, order.long(), -1) != sent)) \
         .sum(-1, dtype=_I32)
-    send_ops = scatter_to_buffer(ops, order, slot, S, cap, SEARCH)
-    send_keys = scatter_to_buffer(k, order, slot, S, cap, sent)
-    send_vals = scatter_to_buffer(qvals, order, slot, S, cap, 0)
+    send = torch.stack([
+        scatter_to_buffer(ops, order, slot, S, cap, SEARCH),
+        _as_words(scatter_to_buffer(k, order, slot, S, cap, sent)),
+        scatter_to_buffer(qvals, order, slot, S, cap, 0)])
     # where each slot came from, so that results can return: the query in
     # slot[i] is sorted item i == original index order[i]
-    src_pos = torch.full((S, S * cap + 1), -1, dtype=_I32,
+    src_pos = torch.full((L, S * cap + 1), -1, dtype=_I32,
                          device=ops.device)
     src_pos.scatter_(-1, slot.long(), order)
     src_pos = src_pos[:, :S * cap]
 
-    # --- the all_to_all: (S_src, S_dst, cap) → (S_dst, S_src, cap) ---------
-    def a2a(x):
-        return x.transpose(0, 1).reshape(S, S * cap)
-
-    recv_ops, recv_keys, recv_vals = (a2a(x) for x in
-                                      (send_ops, send_keys, send_vals))
+    # --- the all_to_all ---------------------------------------------------
+    recv = _exchange(send, group).reshape(3, L, S * cap)
+    recv_ops, recv_keys, recv_vals = recv[0], recv[1].view(kdt), recv[2]
 
     # --- local execution: no shard reads another's state -----------------
-    views = [shard_of(shards, d) for d in range(S)]
+    views = [shard_of(shards, d) for d in range(L)]
     parts, found, val = [], [], []
-    for d in range(S):
+    for d in range(L):
         new, (f, v) = pi.execute_impl(views[d], recv_ops[d], recv_keys[d],
                                       recv_vals[d])
         parts.append(new)
@@ -289,19 +393,26 @@ def _execute_routed(shards: pi.PIIndex, fences, ops, qkeys, qvals, cap: int,
         val.append(v)
 
     # --- inbound routing of results ---------------------------------------
-    def back(xs):
-        return torch.stack(xs).reshape(S, S, cap).transpose(0, 1) \
-            .reshape(S, S * cap)
-
+    back = _exchange(torch.stack([torch.stack(found).to(_I32),
+                                  torch.stack(val)]).reshape(2, L, S, cap),
+                     group).reshape(2, L, S * cap)
     tgt = torch.where(src_pos >= 0, src_pos, b).long()
-    out_found = torch.zeros((S, b + 1), dtype=torch.bool, device=ops.device)
-    out_val = torch.zeros((S, b + 1), dtype=_I32, device=ops.device)
-    out_found.scatter_(-1, tgt, back(found))
-    out_val.scatter_(-1, tgt, back(val))
+    out = torch.zeros((2, L, b + 1), dtype=_I32, device=ops.device)
+    out.scatter_(-1, tgt.expand(2, L, S * cap), back)
     # per-shard load (for self-adjusted rebalancing)
     load = (recv_keys != sent).sum(-1, dtype=_I32)
-    return (stack_shards(parts, views, shards), out_found[:, :b].reshape(-1),
-            out_val[:, :b].reshape(-1), load, n_drop)
+    new_shards = stack_shards(parts, views, shards)
+    if group is None:
+        return (new_shards, out[0, :, :b].reshape(-1).bool(),
+                out[1, :, :b].reshape(-1), load, n_drop)
+    # one gather: found, val, load, dropped of every rank
+    mine = torch.cat([out[:, :, :b].reshape(-1), load, n_drop])
+    every = group_all_gather(mine, group)              # (P, 2Lb + 2L)
+    res = every[:, :2 * L * b].reshape(P, 2, L * b).transpose(0, 1) \
+        .reshape(2, S * b)
+    load = every[:, 2 * L * b:2 * L * b + L].reshape(S)
+    n_drop = every[:, 2 * L * b + L:].reshape(S)
+    return new_shards, res[0].bool(), res[1], load, n_drop
 
 
 def make_sharded_executor(mesh: Mesh, cfg: pi.PIConfig, batch_per_shard: int,
@@ -311,18 +422,20 @@ def make_sharded_executor(mesh: Mesh, cfg: pi.PIConfig, batch_per_shard: int,
 
     ``run(shards, fences, ops, keys, vals) -> (shards', found, vals, load,
     dropped)`` where ops/keys/vals are global (S * batch_per_shard,)
-    tensors, source shard s owning the slice [s*b, (s+1)*b).  ``cap`` is
-    the send-bucket size: a source sends at most ``cap`` queries to each
-    destination.
+    tensors, source shard s owning the slice [s*b, (s+1)*b), and
+    ``shards`` this rank's.  ``cap`` is the send-bucket size: a source
+    sends at most ``cap`` queries to each destination.
     """
     S = mesh.shape[axis_name]
+    group = mesh.group(axis_name)
     # integer-exact ceil: the factor is frozen to a /1024 rational so the
     # lane budget cannot wobble with float rounding
     num = int(round(capacity_factor * 1024))
     cap = -(-batch_per_shard * num // (S * 1024))
 
     def run(shards, fences, ops, qkeys, qvals):
-        return _execute_routed(shards, fences, ops, qkeys, qvals, cap, S)
+        return _execute_routed(shards, fences, ops, qkeys, qvals, cap, S,
+                               group)
 
     return run, cap
 
@@ -330,13 +443,18 @@ def make_sharded_executor(mesh: Mesh, cfg: pi.PIConfig, batch_per_shard: int,
 def execute_sharded(state: ShardedPIIndex, mesh: Mesh, ops, qkeys, qvals,
                     axis_name: str = "data", capacity_factor: float = 2.0):
     """One global batch through the mesh → ``(new_state, (found, val),
-    load, dropped)``; the inputs move to the state's device."""
+    load, dropped)``, every output global on every rank; the inputs move
+    to the state's device."""
     S = state.n_shards
     if mesh.shape[axis_name] != S:
         raise ValueError(f"mesh axis {axis_name!r} has "
                          f"{mesh.shape[axis_name]} shards, the index {S}")
     if mesh.device.type != state.device.type:
         raise ValueError(f"mesh on {mesh.device}, index on {state.device}")
+    if mesh.ranks(axis_name) != state.n_ranks:
+        raise ValueError(f"mesh axis {axis_name!r} spans "
+                         f"{mesh.ranks(axis_name)} ranks, the index "
+                         f"{state.n_ranks}")
     dev = state.device
     ops, qkeys, qvals = (torch.as_tensor(x).to(dev) for x in
                          (ops, qkeys, qvals))
@@ -346,8 +464,7 @@ def execute_sharded(state: ShardedPIIndex, mesh: Mesh, ops, qkeys, qvals,
                                    axis_name, capacity_factor)
     shards, found, val, load, dropped = run(state.shards, state.fences, ops,
                                             qkeys, qvals)
-    new_state = ShardedPIIndex(shards=shards, fences=state.fences,
-                               n_shards=S)
+    new_state = dataclasses.replace(state, shards=shards)
     return new_state, (found, val), load, dropped
 
 
@@ -356,50 +473,80 @@ def execute_sharded(state: ShardedPIIndex, mesh: Mesh, ops, qkeys, qvals,
 # ---------------------------------------------------------------------------
 
 def rebuild_sharded(state: ShardedPIIndex) -> ShardedPIIndex:
-    """Per-shard deferred rebuild of every shard."""
-    views = [shard_of(state.shards, s) for s in range(state.n_shards)]
+    """Per-shard deferred rebuild of every local shard."""
+    n_local = state.shards.keys.shape[0]
+    views = [shard_of(state.shards, s) for s in range(n_local)]
     shards = stack_shards([pi.rebuild(v) for v in views])
-    return ShardedPIIndex(shards=shards, fences=state.fences,
-                          n_shards=state.n_shards)
+    return dataclasses.replace(state, shards=shards)
 
 
-def maybe_rebuild_shards(shards: pi.PIIndex):
+def rebuild_due(shards: pi.PIIndex, group=None, extra=None):
+    """``maybe_rebuild_shards`` that also gathers ``extra`` (an int32
+    vector of this rank's own values) in the same gather → ``(shards,
+    any_overflow, any_due, extra of every rank)``, the last three read on
+    the host (``extra`` as one list a rank)."""
+    L = shards.keys.shape[0]
+    mine = [shards.overflow.any().to(_I32)[None],
+            pi.needs_rebuild(shards).to(_I32)]
+    if extra is not None:
+        mine.append(extra.to(_I32))
+    # the one host read, of every rank's flags: every rank takes the
+    # same branch
+    every = group_all_gather(torch.cat(mine), group).tolist()
+    due = [row[1:1 + L] for row in every]
+    any_due = any(map(any, due))
+    if any_due:
+        views = [shard_of(shards, s) for s in range(L)]
+        parts = [pi.rebuild(v) if d else v
+                 for v, d in zip(views, due[group_rank(group)])]
+        shards = stack_shards(parts, views, shards)
+    return (shards, any(row[0] for row in every), any_due,
+            [row[1 + L:] for row in every])
+
+
+def maybe_rebuild_shards(shards: pi.PIIndex, group=None):
     """Per-shard dirty-tracked daemon on stacked shard leaves.
 
     Rebuilds only the shards that are due (``needs_rebuild``, evaluated
-    for all shards at once and read on the host once); a shard that is
-    not due keeps its state, pending churn included.  Returns ``(shards,
-    any_overflow, any_due)``; the overflow flag is taken *before* the
-    rebuild resets it on the state (overflow is data loss and must stay
-    observable).
+    for the rank's shards at once, the flags of every rank gathered and
+    read on the host once, so that every rank takes the same branch); a
+    shard that is not due keeps its state, pending churn included.
+    Returns ``(shards, any_overflow, any_due)`` over every rank; the
+    overflow flag is taken *before* the rebuild resets it on the state
+    (overflow is data loss and must stay observable).
     """
-    ovf = shards.overflow.any()
-    due_each = pi.needs_rebuild(shards)
-    due = due_each.any()
-    due_host = due_each.cpu().tolist()
-    if not any(due_host):
-        return shards, ovf, due
-    views = [shard_of(shards, s) for s in range(len(due_host))]
-    parts = [pi.rebuild(v) if d else v for v, d in zip(views, due_host)]
-    return stack_shards(parts, views, shards), ovf, due
+    shards, ovf, due, _ = rebuild_due(shards, group)
+    return shards, ovf, due
 
 
 def maybe_rebuild_sharded(state: ShardedPIIndex) -> ShardedPIIndex:
     """State-level wrapper of ``maybe_rebuild_shards``."""
-    shards, _, _ = maybe_rebuild_shards(state.shards)
-    return ShardedPIIndex(shards=shards, fences=state.fences,
-                          n_shards=state.n_shards)
+    shards, _, _ = maybe_rebuild_shards(state.shards, state.group)
+    return dataclasses.replace(state, shards=shards)
+
+
+def _gather_ragged(x: np.ndarray, group, device) -> np.ndarray:
+    """Every rank's 1-D array, concatenated in rank order."""
+    if group is None:
+        return x
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    sizes = group_all_gather(torch.tensor([t.numel()], device=device),
+                             group).reshape(-1).tolist()
+    pad = torch.zeros(max(sizes), dtype=t.dtype, device=device)
+    pad[:t.numel()] = t
+    every = group_all_gather(pad, group).cpu().numpy()
+    return np.concatenate([every[i, :n] for i, n in enumerate(sizes)])
 
 
 def collect_pairs(state: ShardedPIIndex):
-    """Host-side: all live (key, val) pairs sorted by key (numpy), for
-    resharding and tests."""
+    """Host-side: all live (key, val) pairs sorted by key (numpy), from
+    every rank, for resharding and tests."""
     ks, vs = [], []
-    for s in range(state.n_shards):
+    for s in range(state.shards.keys.shape[0]):
         k, v = pi.live_items(shard_of(state.shards, s))
         ks.append(k)
         vs.append(v)
-    k = np.concatenate(ks)
-    v = np.concatenate(vs)
+    k = _gather_ragged(np.concatenate(ks), state.group, state.device)
+    v = _gather_ragged(np.concatenate(vs), state.group, state.device)
     order = np.argsort(k)
     return k[order], v[order]

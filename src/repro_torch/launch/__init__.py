@@ -1,3 +1,4 @@
 """Entry points of the port: ``serve`` (LM continuous batching over the
-PI session table) and ``train`` (the fault-tolerant training loop).  The
-dry-run waits (ROADMAP A12)."""
+PI session table), ``train`` (the fault-tolerant training loop) and
+``mesh`` (device meshes over ``torch.distributed``, one process a rank).
+The dry-run waits (ROADMAP A12)."""

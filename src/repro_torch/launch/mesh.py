@@ -1,0 +1,74 @@
+"""Device meshes over ``torch.distributed``: one process a rank.
+
+Counterpart of ``repro.launch.mesh``, with the reference's shapes and
+axis names:
+
+  Single pod : (16, 16)      axes ("data", "model")
+  Multi-pod  : (2, 16, 16)   axes ("pod", "data", "model")
+  Test       : (4, 2) and (2, 2, 2) of the same names
+
+Each is a ``torch.distributed.device_mesh.DeviceMesh`` over the process
+group the caller initialized (``torch.distributed.init_process_group``,
+with its address, world size and rank given: nothing here finds a
+cluster).  The world size must be the mesh's size.  Every axis's process
+group is created with ``timeout``, so that a rank that diverges fails its
+peers' next collective instead of hanging them.  The caller names the
+device type: nothing here picks the CPU when it finds no card.
+"""
+from __future__ import annotations
+
+import datetime
+import math
+
+import torch.distributed as tdist
+from torch.distributed.device_mesh import init_device_mesh
+
+DEFAULT_TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def _options(backend: str, timeout: datetime.timedelta):
+    if backend == "nccl":
+        opts = tdist.ProcessGroupNCCL.Options()
+    elif backend == "gloo":
+        opts = tdist.ProcessGroupGloo._Options()
+    else:
+        raise ValueError(f"backend {backend!r}: the mesh takes nccl or gloo")
+    opts._timeout = timeout
+    return opts
+
+
+def make_mesh(shape, axis_names, *, device_type: str,
+              timeout: datetime.timedelta = DEFAULT_TIMEOUT):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over the world
+    process group, each axis's group on its backend with ``timeout``."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"{len(shape)} axis sizes for {len(axis_names)} "
+                         f"axis names")
+    if not tdist.is_initialized():
+        raise RuntimeError("a mesh needs torch.distributed initialized "
+                           "first (init_process_group: one process a rank)")
+    world = tdist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
+                         f"process group has {world}")
+    backend = tdist.get_backend()
+    opts = (backend, _options(backend, timeout))
+    return init_device_mesh(device_type, shape, mesh_dim_names=axis_names,
+                            backend_override={a: opts for a in axis_names})
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda",
+                         timeout: datetime.timedelta = DEFAULT_TIMEOUT):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type=device_type, timeout=timeout)
+
+
+def make_test_mesh(*, multi_pod: bool = False, device_type: str,
+                   timeout: datetime.timedelta = DEFAULT_TIMEOUT):
+    """The scaled-down mesh of eight ranks."""
+    shape = (2, 2, 2) if multi_pod else (4, 2)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type=device_type, timeout=timeout)

@@ -16,9 +16,9 @@ Counterpart of ``repro.launch.train``, on one card:
 
 The loss is read once a step (``float``), the step's one host sync, as
 the JAX loop does.  ``mesh`` is ``None`` (the card, or ``device``) or the
-port's one-device ``core.distributed.Mesh``, which places every leaf of
-the state, restored ones included, on its device; a mesh over more than
-one card raises (ROADMAP A9, across cards).
+port's ``core.distributed.Mesh`` of one rank, which places every leaf of
+the state, restored ones included, on its device; a mesh over several
+ranks raises (ROADMAP A13, the LM across cards).
 """
 from __future__ import annotations
 
@@ -69,6 +69,11 @@ def _train_device(mesh, device) -> torch.device:
         mesh = make_mesh((len(mesh),), ("data",), device=mesh)
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh {mesh!r} is not a core.distributed.Mesh")
+    if any(mesh.ranks(a) > 1 for a in mesh.axis_names):
+        raise NotImplementedError(
+            "training over a mesh of several ranks needs the LM's tensors "
+            "placed over it, not ported yet (ROADMAP A13, the LM across "
+            "cards)")
     return mesh.device
 
 

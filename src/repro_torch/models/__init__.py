@@ -4,7 +4,8 @@ GQA prefill and training through the CUDA flash kernel
 (``models.moe``: routed experts by the PI sorted dispatch, MLA, MTP;
 ``models.ssm``: mamba2's chunked SSD and recurrent decode;
 ``models.griffin``: the RG-LRU scan and local attention over a ring
-cache; ``models.kvquant``: the int8 KV cache).
+cache; ``models.kvquant``: the int8 KV cache; ``models.pipeline``: GPipe
+over a mesh axis of ranks).
 """
 from repro_torch.models.base import (ModelConfig, abstract_params,
                                      cast_floats, init_params,

@@ -285,11 +285,93 @@ class _TakeRows(torch.autograd.Function):
         return out.index_copy_(0, idx, grad), None
 
 
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(t) for t in tree)
+    if isinstance(tree, dict):
+        return _requires_grad(list(tree.values()))
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def moe_apply_shardmap(cfg: ModelConfig, p: Dict, x, capacity_factor=None):
-    """The reference's expert-parallel dispatch over a mesh axis.  On one
-    card there is no mesh, and the reference then runs ``moe_apply``
-    (ROADMAP A.4 ports the exchange across cards)."""
-    return moe_apply(cfg, p, x, capacity_factor)
+    """Expert-parallel dispatch over the mesh in scope (``sharding``): the
+    reference's ``shard_map`` body, run by every rank on its own block.
+
+    Every rank holds the same ``x`` and parameters (the reference's
+    replicated activations).  A rank keeps the tokens of its batch block
+    (the ``batch`` rule's axes) and the ``E_local = Ep / model`` experts
+    of its model-axis index, filters the token copies routed to them
+    (PI: a NUMA node answers only its key range), places them in its
+    capacity buffer by ``dispatch_plan``, runs the three expert products,
+    and a ``psum`` over the model axis's group combines each token's
+    contributions.  The batch blocks are then gathered, so that every
+    rank returns the whole (B, S, d) output.  Without a mesh, or with no
+    axis for the experts, it is ``moe_apply``, as in the reference.  A
+    forward path: its collectives carry no gradient, so with autograd
+    recording on a mesh of several ranks it raises ``NotImplementedError``
+    (training over a mesh is ROADMAP A13).
+    """
+    from repro_torch import sharding as shd
+
+    mesh = shd.current_mesh()
+    model_axes = shd.physical_axes("experts", cfg.experts_padded)
+    if mesh is None or not model_axes:
+        return moe_apply(cfg, p, x, capacity_factor)
+    if mesh.size() > 1 and torch.is_grad_enabled() and \
+            _requires_grad([x, p]):
+        raise NotImplementedError(
+            "moe_apply_shardmap's collectives carry no gradient across "
+            "ranks: its backward over a mesh is ROADMAP A13, the LM across "
+            "cards")
+    model_ax = model_axes[0]
+    B, S, d = x.shape
+    K, Ep = cfg.top_k, cfg.experts_padded
+    N = B * S
+    xf = x.reshape(N, d)
+    gate_vals, expert_ids, lb_loss = _route(cfg, p, xf)
+
+    sizes = shd.mesh_sizes(mesh)
+    batch_axes = shd.physical_axes("batch", N)
+    n_b, b_idx = 1, 0
+    for a in batch_axes:             # row-major over the batch axes
+        n_b *= sizes[a]
+        b_idx = b_idx * sizes[a] + shd.axis_index(a)
+    N_loc = N // n_b
+    E_local = Ep // sizes[model_ax]
+    cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity
+    cap = int(math.ceil(N_loc * K / Ep * cf))
+    cap = max(8, min(cap, N_loc))
+
+    rows = slice(b_idx * N_loc, (b_idx + 1) * N_loc)
+    xf_l = xf[rows]
+    gv_l = gate_vals.to(x.dtype)[rows]
+    lo = shd.axis_index(model_ax) * E_local
+    dest = expert_ids[rows].reshape(-1).to(torch.int32) - lo
+    valid = (dest >= 0) & (dest < E_local)
+    dest_c = torch.where(valid, dest, E_local)          # overflow bucket
+    order, slot, keep, _ = dispatch_plan(dest_c, E_local + 1, cap)
+    olong = order.long()
+    live = keep & valid[olong]
+    slot = torch.where(live, slot, E_local * cap)       # bucket rows drop
+    tok_of = (torch.arange(N_loc * K, device=x.device) // K)[olong]
+    # every live copy has its own row; the rest land on the spare row
+    xbuf = xf_l.new_zeros((E_local * cap + 1, d)).index_copy(
+        0, slot.long(), xf_l[tok_of])[:-1].view(E_local, cap, d)
+    experts = slice(lo, lo + E_local)
+    h = torch.bmm(xbuf, p["w_gate"][experts])
+    u = torch.bmm(xbuf, p["w_up"][experts])
+    h = F.silu(h) * u
+    y = torch.bmm(h, p["w_down"][experts]).reshape(E_local * cap, d)
+    g = torch.where(live, gv_l.reshape(-1)[olong], 0).to(x.dtype)
+    contrib = y[torch.where(live, slot, 0).long()] * g[:, None]
+    out = xf_l.new_zeros((N_loc, d)).index_add_(0, tok_of, contrib)
+    out = shd.psum(out, model_ax)
+    for a in reversed(batch_axes):   # the blocks, innermost axis first
+        out = shd.all_gather(out, a).flatten(0, 1)
+    out = out.reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(cfg, p["shared"], x)
+    return out, lb_loss
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,8 @@ layers on its leading dim) is updated a layer at a time, so that an
 update's float32 temporaries stay the size of one layer's matrix and not
 of the stack's (805 M values for phi3-mini's ``blocks/mlp/w_up``).
 
-``compressed_psum`` needs a process group across cards and is not ported
-(ROADMAP A12).
+``compressed_psum`` is the reference's int8 all-reduce with error
+feedback, over a named axis of the mesh in scope (``sharding``).
 """
 from __future__ import annotations
 
@@ -233,7 +233,19 @@ def quantize_int8(x: torch.Tensor):
 
 
 def compressed_psum(x, axis_name: str, err):
-    """The int8 all-reduce with error feedback across cards: not ported."""
-    raise NotImplementedError(
-        "compressed_psum reduces over a process group across cards, not "
-        "ported yet (ROADMAP A12)")
+    """The mean of ``x`` over ``axis_name``'s ranks, int8-quantized with
+    error feedback → ``(mean, new_err)``.
+
+    The reference's arithmetic: ``quantize_int8`` of ``x + err`` in
+    float32, the dequantized values summed over the axis
+    (``sharding.psum``, an ``all_reduce``) and divided by its size, and the
+    quantization error carried to the next step.  As in the reference the
+    sum carries float32 on the wire, not int8 (ROADMAP §C).
+    """
+    from repro_torch import sharding as shd
+    xf = x.float() + err
+    q, scale = quantize_int8(xf)
+    deq = q.float() * scale
+    new_err = xf - deq
+    summed = shd.psum(deq, axis_name)
+    return summed / shd.axis_size(axis_name), new_err

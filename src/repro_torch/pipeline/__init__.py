@@ -1,4 +1,6 @@
-"""Serving path above the PI core, for one shard or fence-routed shards.
+"""Serving path above the PI core, for one shard or fence-routed shards
+(on one card, or over the ranks of a mesh: every rank runs the same
+collector and dispatcher).
 
   workload    open-loop arrival streams (poisson/bursty/diurnal/hotkey
               timing × the YCSB zipf op mix, with a YCSB-E scan mix)

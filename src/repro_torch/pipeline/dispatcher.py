@@ -12,7 +12,13 @@ Routing: a ``PIIndex`` executes locally through ``step_single``; a
 ``core.distributed.execute_sharded``, whose fence partitioning routes each
 window's per-shard slices, then ``maybe_rebuild_shards`` rebuilds the
 shards that are due; its ranges go through
-``pipeline.ranges.execute_ranges_sharded``.
+``pipeline.ranges.execute_ranges_sharded``.  Over the ranks of a mesh
+every rank runs the same dispatcher on the same windows, and every device
+value that a host branch reads is first gathered from every rank: the
+results, drops, overflow and rebuild flags and the pending fill, with a
+digest of the window that must be the same on every rank (a rank that
+diverged fails loudly; one that stops fails its peers at the process
+group's timeout).
 
 PyTorch launches asynchronously, so with ``depth >= 1`` the host forms
 window k+1 while the card still runs window k, and a window's results
@@ -49,7 +55,8 @@ drops have no rollback point.
 Durability (``pipeline.recovery.Durability``): ``run`` hands the
 collector ``durability.on_seal``, so every window is in the WAL before it
 is dispatched, and ``submit`` calls ``durability.maybe_snapshot`` after
-each window's step.
+each window's step; a sharded dispatcher records its capacity factor
+(``durability.record_capacity_factor``), at which recovery replays.
 """
 from __future__ import annotations
 
@@ -93,6 +100,16 @@ class DispatchOverflowError(RuntimeError):
     """
 
     windows: List[Window] = []
+
+
+def _digest(ops, keys, vals) -> torch.Tensor:
+    """An int32 digest of a window's lanes (wrapping sums, a float32 key
+    by its bits), by which the ranks of a sharded dispatcher check that
+    they run the same window."""
+    w = torch.arange(1, ops.numel() + 1, dtype=torch.int32,
+                     device=ops.device)
+    k = keys if keys.dtype == torch.int32 else keys.view(torch.int32)
+    return ((ops * 3 + k * 5 + vals * 7) * w).sum(dtype=torch.int32)
 
 
 def step_single(index: pi.PIIndex, ops, keys, vals):
@@ -228,6 +245,9 @@ class Dispatcher:
         self.breaker_recoveries = 0
         cfg = index.shards.config if self._sharded else index.config
         self._pending_capacity = int(cfg.pending_capacity)
+        if durability is not None and self._sharded:
+            # recover replays the WAL at this routing
+            durability.record_capacity_factor(capacity_factor)
 
     @property
     def _sharded(self) -> bool:
@@ -288,11 +308,21 @@ class Dispatcher:
             state, (found, val), _, dropped = dist.execute_sharded(
                 self._index, self._mesh, ops, keys, vals,
                 capacity_factor=self.capacity_factor)
-            pn = state.shards.pn.max()  # hottest shard's fill high-water
-            shards, ovf, rebuilt = dist.maybe_rebuild_shards(state.shards)
-            self._index = dist.ShardedPIIndex(
-                shards=shards, fences=state.fences, n_shards=state.n_shards)
-            return found, val, ovf, rebuilt, None, dropped.sum(), pn
+            # this rank's hottest shard's fill high-water and, over
+            # several ranks, a digest of the window, gathered with the
+            # rebuild flags
+            mine = state.shards.pn.max()[None]
+            if state.group is not None:
+                mine = torch.cat([mine, _digest(ops, keys, vals)[None]])
+            shards, ovf, rebuilt, every = dist.rebuild_due(
+                state.shards, state.group, mine)
+            if state.group is not None and len({e[1] for e in every}) > 1:
+                raise RuntimeError(
+                    "the ranks ran different windows: every rank must run "
+                    "the same collector on the same arrivals")
+            self._index = dataclasses.replace(state, shards=shards)
+            return found, val, ovf, rebuilt, None, dropped.sum(), \
+                max(e[0] for e in every)
         self._index, found, val, ovf, rebuilt, incr, pn = step_single(
             self._index, ops, keys, vals)
         return found, val, ovf, rebuilt, incr, None, pn

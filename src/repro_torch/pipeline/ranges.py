@@ -22,7 +22,8 @@ and flows through the same collect → dispatch stages as point ops:
   clipped subranges ``[max(lo, fence_s), min(hi, fence_{s+1} - 1)]`` and
   sums the ``(count, sum)`` partials; shards own disjoint key intervals,
   so the sum is exact (no double counting).  Read-only, so no routing:
-  every shard sees every query lane.
+  every shard sees every query lane; over ranks, each rank's partials
+  are gathered and summed in global shard order.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from repro_torch.core.batch import RANGE
 from repro_torch.core.distributed import shard_of
 from repro_torch.core.engine import get_engine
 from repro_torch.kernels.pi_search import sentinel_for
+from repro_torch.sharding import group_all_gather
 
 
 def _range_lanes(ops, keys, keys2, kdt):
@@ -65,23 +67,33 @@ def execute_ranges_sharded(state, ops, keys, keys2, max_span: int):
     Shard ``s`` owns keys in ``[fences[s], fences[s+1])``, so its
     subrange is the query clipped to that interval — empty (lo > hi,
     hence inert) when the range misses the shard — and the global
-    ``(count, sum)`` is the sum of partials over disjoint intervals (int32,
-    wrapping as the JAX sums do).  ``max_span`` is a *per-shard* budget,
-    so splitting can only widen what a span cap would truncate.  ``state``
-    is a ``ShardedPIIndex``; one ``range_agg`` a shard (on the ``cuda``
-    backend one ``pi_range`` launch a shard).
+    ``(count, sum)`` is the sum of partials over disjoint intervals.
+    ``max_span`` is a *per-shard* budget, so splitting can only widen what
+    a span cap would truncate.  ``state`` is a ``ShardedPIIndex``; each
+    rank runs one ``range_agg`` for each of its own shards (on the
+    ``cuda`` backend one ``pi_range`` launch a shard), the partials of
+    every rank are gathered and summed in global shard order, from zero,
+    in int32 that wraps as the JAX sums do: the one-card arithmetic,
+    which a backend's integer reduction need not reproduce.
     """
     fences = state.fences
     lo, hi = _range_lanes(*_on(state.device, ops, keys, keys2),
                           fences.dtype)
-    cnt = torch.zeros(lo.shape, dtype=torch.int32, device=state.device)
-    sm = torch.zeros_like(cnt)
-    for s in range(state.n_shards):
-        shard = shard_of(state.shards, s)
+    first = state.first
+    parts = []
+    for j in range(state.shards.keys.shape[0]):
+        s = first + j
+        shard = shard_of(state.shards, j)
         slo = torch.maximum(lo, fences[s])
         shi = torch.minimum(hi, fences[s + 1] - 1)
-        pc, ps = get_engine(shard.config).range_agg(shard, slo, shi,
-                                                    max_span)
+        parts.append(get_engine(shard.config).range_agg(shard, slo, shi,
+                                                        max_span))
+    if state.group is not None:                          # (S, 2, batch)
+        parts = group_all_gather(torch.stack([torch.stack(q) for q in parts]),
+                                 state.group).flatten(0, 1)
+    cnt = torch.zeros(lo.shape, dtype=torch.int32, device=state.device)
+    sm = torch.zeros_like(cnt)
+    for pc, ps in parts:
         cnt = cnt + pc
         sm = sm + ps
     return cnt, sm

@@ -1,7 +1,8 @@
 """The schedule of the port's bitonic kernel on CPU.
 
 ``kernels.bitonic_sort.pass_plan`` is the one place that decides the CUDA
-kernel's launches.  For every log2 B from 1 to 16 and tiles of 2^2 ..
+kernel's launches.  For log2 B in ``LOG_NS`` (with
+``test_torch_bitonic_plan_b.py``, every log2 B from 1 to 16) and tiles of 2^2 ..
 2^6 lanes (and the card's defaults): the plan must run each (stage,
 stride) of the network exactly once, in the network's order, every stride
 inside the pass's tile, the tiles of a pass a partition of the lanes; and
@@ -19,9 +20,23 @@ import torch
 from repro_torch.kernels import bitonic_sort as BS
 
 I32 = np.iinfo(np.int32)
-LOG_NS = range(1, 17)
+# log2 B 1..16 split across this file and test_torch_bitonic_plan_b.py
+# (one file a worker under --dist loadfile): the JAX sort in interpret
+# mode sets each size's time, ~2.5x from one size to the next
+LOG_NS = (16, 13, 12, 10, 5, 3)
 LOG_TILES = range(2, 7)
 _JAX_SORTED = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain executor's ops are small: on one thread.  Intra-op
+    threads spinning in two of these files at once, and beside the
+    suite's other workers, cost several times their work."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def variants(log_tile):

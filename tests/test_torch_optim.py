@@ -30,6 +30,7 @@ import torch
 
 from repro import optim as jopt
 from repro_torch import optim as topt
+from repro_torch import sharding as tshd
 from repro_torch.models.base import params_from_numpy
 
 RTOL = 1e-6
@@ -167,9 +168,35 @@ def test_quantize_int8(rng):
     assert ts.item() == float(js)
 
 
-def test_compressed_psum_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        topt.compressed_psum(torch.zeros(4), "pod", torch.zeros(4))
+def test_compressed_psum_names_its_roadmap_item(tmp_path):
+    """On a one-rank "pod" axis (a ``gloo`` group of this process) the
+    reference's one-device result: ``q`` bit for bit, the mean over one
+    rank and the carried error within 1e-6."""
+    from repro import sharding as jshd
+    from torch_ranks import one_rank
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 40)).astype(np.float32)
+    err = (1e-3 * rng.normal(size=(3, 40))).astype(np.float32)
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("pod",))
+    body = jshd.shard_map(lambda a, e: jopt.compressed_psum(a, "pod", e),
+                          mesh=mesh, in_specs=(jax.sharding.PartitionSpec(),
+                                               jax.sharding.PartitionSpec()),
+                          out_specs=(jax.sharding.PartitionSpec(),
+                                     jax.sharding.PartitionSpec()),
+                          check_vma=False)
+    jmean, jerr = jax.jit(body)(jnp.asarray(x), jnp.asarray(err))
+    with one_rank(str(tmp_path), "pod") as m, tshd.use_mesh(m):
+        mean, new_err = topt.compressed_psum(torch.from_numpy(x), "pod",
+                                             torch.from_numpy(err))
+    # XLA contracts xf - q * scale into a fused multiply-add: the error is
+    # held within 1e-6, as across ranks (tests/test_torch_mesh.py)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(new_err.numpy(), np.asarray(jerr), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(
+        topt.quantize_int8(torch.from_numpy(x + err))[0].numpy(),
+        np.asarray(jopt.quantize_int8(jnp.asarray(x) + jnp.asarray(err))[0]))
 
 
 def quad_loss(p):

@@ -238,14 +238,15 @@ def test_submit_leaves_the_pre_window_index_bit_identical():
 
 
 def test_dispatcher_refuses_unported_tiers():
-    """The one tier still refused is a mesh over more than one device
-    (ROADMAP A9, multi-GPU).  A sharded index without its mesh is a
+    """No tier is refused.  A mesh over two devices is two ranks, named
+    by a process group (``launch.mesh``), and without one it is a
+    ``ValueError``.  A sharded index without its mesh is a
     ``ValueError``, as in JAX; with one it is served, and the overload
     breaker's config is accepted."""
     idx = tpi.build(tpi.PIConfig(capacity=64, pending_capacity=8),
                     np.arange(4, dtype=np.int32),
                     np.arange(4, dtype=np.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="process group"):
         tpipe.Dispatcher(idx, mesh=tdist.make_mesh(
             (2,), ("data",), device=["cpu", "meta"]))
     state = tdist.build_sharded(idx.config, 2, np.arange(4, dtype=np.int32),

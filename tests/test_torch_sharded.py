@@ -557,14 +557,15 @@ def test_sharded_dispatch_surfaces_routing_drops():
 
 def test_sharded_dispatch_requires_mesh_and_refuses_many_devices():
     """A ``ShardedPIIndex`` without a mesh is a ``ValueError``, as in JAX;
-    a mesh over more than one device names ROADMAP A9."""
+    a mesh over two devices is two ranks, and without a process group
+    (``launch.mesh``) it is a ``ValueError`` that says so."""
     cfg = tc.PIConfig(capacity=64, pending_capacity=32, fanout=4)
     state = tc.build_sharded(cfg, 1, np.arange(4, dtype=np.int32),
                              np.arange(4, dtype=np.int32), device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         tp.Dispatcher(state)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tc.make_mesh((2,), ("data",), device=["cpu", "meta"])
+    with pytest.raises(ValueError, match="process group"):
+        tc.make_mesh((2,), ("data",), device=["cuda:0", "cuda:1"])
     mesh = tc.make_mesh((2,), ("data",), device=["cpu", "cpu"])
     assert mesh.shape == {"data": 2} and mesh.device == torch.device("cpu")
     with pytest.raises(ValueError, match="shards"):
@@ -870,6 +871,43 @@ def test_sharded_durability_across_packages_1(tmp_path):
                   "live states")
     jrec, _ = jp.recover(str(tmp_path / tp.__name__), mesh=jax_mesh1())
     assert_leaves(want, jax_leaves(jrec.shards, jrec.fences), "JAX reads")
+
+
+def test_sharded_recover_replays_at_the_recorded_capacity_factor(tmp_path):
+    """A dispatcher at capacity factor 4.0 records it in the metadata, and
+    ``recover`` replays the WAL at it with no argument: every window is
+    on one shard, so the reference's replay at 2.0 overflows the send
+    buckets.  A dispatcher at another factor cannot append to the
+    directory."""
+    cfg = tc.PIConfig(capacity=1024, pending_capacity=128, fanout=4,
+                      backend="torch")
+    keys0 = np.arange(0, 400, 2, dtype=np.int32)
+    state = tc.build_sharded(cfg, 4, keys0, keys0 * 3, device="cpu")
+    mesh = tc.make_mesh((4,), ("data",), device="cpu")
+    rng = np.random.default_rng(7)
+    n = 64                        # four windows, all on shard 0's keys
+    stream = types.SimpleNamespace(
+        t=np.zeros(n), ops=rng.integers(0, 3, n).astype(np.int32),
+        keys=rng.integers(0, 100, n).astype(np.int32),
+        vals=rng.integers(0, 1000, n).astype(np.int32))
+    d = str(tmp_path)
+    dur = tp.Durability(d, state)         # a crash: never closed
+    disp = tp.Dispatcher(state, mesh=mesh, depth=0, capacity_factor=4.0,
+                         durability=dur)
+    disp.run(stream, collector=tp.Collector(tp.WindowConfig(batch=16),
+                                            on_seal=dur.on_seal))
+    with open(os.path.join(d, "durability.json")) as f:
+        assert json.load(f)["capacity_factor"] == 4.0
+    rec, replayed = tp.recover(d, device="cpu")
+    assert len(replayed) == 4
+    assert_leaves(port_leaves(disp.index.shards, disp.index.fences),
+                  port_leaves(rec.shards, rec.fences), "recover at 4.0")
+    at2 = tp.Dispatcher(state, mesh=mesh, depth=0, capacity_factor=2.0)
+    with pytest.raises(tp.DispatchOverflowError):
+        at2.submit(tp.record_window(replayed[0]))
+    with pytest.raises(ValueError, match="capacity factor 4.0"):
+        tp.Dispatcher(rec, mesh=mesh, capacity_factor=2.0,
+                      durability=tp.Durability(d, rec))
 
 
 def test_sharded_snapshot_restores_onto_a_device_tree(tmp_path):

@@ -33,6 +33,7 @@ the loop tests (the port's draws on a ``torch.Generator``, not on
 """
 import dataclasses
 import shutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -449,8 +450,15 @@ def test_train_mesh_one_device_and_more(tmp_path):
     res = ttrain.train(TINY, OPT, loop, dcfg(TINY),
                        mesh=make_mesh((1,), ("data",), device="cpu"))
     assert res.final_step == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="process group"):
         ttrain.train(TINY, OPT, loop, dcfg(TINY), mesh=["cpu", "meta"])
+    # a mesh whose data axis spans two ranks (a stand-in DeviceMesh: the
+    # refusal reads only its axis sizes)
+    two = types.SimpleNamespace(mesh_dim_names=("data",),
+                                size=lambda dim=None: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        ttrain.train(TINY, OPT, loop, dcfg(TINY), mesh=make_mesh(
+            (2,), ("data",), device="cpu", device_mesh=two))
 
 
 @pytest.mark.parametrize("moments", ["bfloat16", "float32"])
