@@ -166,6 +166,34 @@ fence-routed shards, windows of 8192 operations.  Phases:
    ``build/train_ckpt`` (removed at the end): a slow step flagged by the
    watchdog, a failure injected after a checkpoint, the resumed run's
    loss against an uninterrupted run's;
+11b. ``[mesh:train]``: the language model across ranks.  4 ranks
+   (``mesh_rank``, spawned as ``[mesh]``'s, ``cpu_count // 4`` threads
+   each) share the card over ``gloo`` on a (2, 2) ("data", "model") mesh,
+   the state placed by ``sharding.DEFAULT_RULES`` as DTensors: (a)
+   phi3-mini-3.8b at its full width and depth (``LM_LAYERS``),
+   bfloat16, AdamW with bfloat16 moments, drawn from ``SEED`` onto the
+   mesh (every rank draws each leaf on the host and keeps its block),
+   ``MESH_TRAIN_STEPS`` steps of 4 x 2048 tokens: every rank's losses
+   equal, the first within ``MESH_TRAIN_TOL`` of ``[train]``'s
+   one-process first loss, the flash kernel launched on each rank's
+   local heads twice a layer a step; each rank's peak memory and the
+   p50 of the steps after the first; (b) phi3's widths at 2 layers in
+   float32 on the 4 ranks against one process on the card under
+   ``CARD_CPU_TOL`` (loss, gradients, one AdamW step), the placing of the
+   state timed; (c) ``launch/train.py::train`` over the 4 ranks at 1
+   layer, 4 steps, checkpoints after the last two; 1 NCCL rank restores
+   the last one bit for bit (leaf digests against the state the ranks
+   gathered) and resumes from the one before it for the last step, its
+   loss within ``MESH_TRAIN_TOL`` of the ranks'; (d) granite-moe's
+   widths at 2 layers in float32, drop-free (capacity factor 64): the
+   gradients of ``loss_fn`` through ``moe_apply_shardmap`` (24 experts a
+   rank) within 1e-5 of each leaf's largest of one process's
+   ``moe_apply``; (e) 1 NCCL rank: (a)'s step at 2 layers through a
+   one-rank mesh equals the step without one bit for bit
+   (deterministic algorithms on: the embedding's backward adds without
+   atomics).  A one-rank mesh runs the one-card program on its blocks
+   (``steps.loss_and_grad``), so (e) holds the placing, the optimizer
+   and the NCCL group of one rank, not the DTensor path of (a)-(d);
 12. ``[lm:moe]`` and ``[serve:lm:moe]``: 9 and 10 for granite-moe-3b-a800m
    at its published widths and depth (32 layers, d 1536, 24 heads over 8
    KV heads of 64, 40 experts padded to 48, top 8 of width 512, vocab
@@ -187,9 +215,10 @@ fence-routed shards, windows of 8192 operations.  Phases:
    on the CPU: ``forward``, ``prefill``, three decode steps, ``loss_fn``
    with every gradient and one AdamW step within ``CARD_CPU_TOL``;
 15. ``[lm:ssm]``, ``[serve:lm:ssm]`` and ``[train:ssm]``: 9, 10 and 11
-   (b), (c) for mamba2-2.7b at its published widths and depth (64
-   layers, d 2560, state 128, 80 heads of 64, conv 4, chunk 128, vocab
-   50280 padded to 50432, tied; 2,702,968,320 parameters by its layout):
+   (b), (c) for mamba2-2.7b at its published widths, 32 of its 64 layers
+   (``LM_DEPTH``; d 2560, state 128, 80 heads of 64, conv 4, chunk 128,
+   vocab 50280 padded to 50432, tied; 1,416,038,400 parameters by its
+   layout at that depth):
    no attention, so no flash launch; the float32 prefill of 2 x 200
    tokens (no multiple of the chunk: the prefill pads with dt = 0)
    against 200 decode steps in its last logits, its float32 ``ssm``
@@ -198,11 +227,12 @@ fence-routed shards, windows of 8192 operations.  Phases:
    chunks, ``out_proj``); every train loss finite, the last below the
    first;
 16. ``[lm:griffin]``, ``[serve:lm:griffin]`` and ``[train:griffin]``:
-   recurrentgemma-9b at its published widths and depth (38 layers: 12
-   groups of (rec, rec, attn) and a tail of 2 rec, d 4096, 16 heads of
-   256 over 1 KV head, window 2048, lru 4096, GeGLU d_ff 12288, vocab
-   256000, tied and scaled embeddings; 8,524,206,080 parameters): the
-   8 x 2048 prefill (the flash kernel once an attention layer, 12), its
+   recurrentgemma-9b at its published widths, 14 of its 38 layers
+   (``LM_DEPTH``: 4 groups of (rec, rec, attn) and the tail of 2 rec, d
+   4096, 16 heads of 256 over 1 KV head, window 2048, lru 4096, GeGLU
+   d_ff 12288, vocab 256000, tied and scaled embeddings; 3,808,956,416
+   parameters at that depth): the 8 x 2048 prefill (the flash kernel
+   once an attention layer, 4), its
    ring cache quantized to int8 and back by ``models/kvquant.py`` within
    ``tests/test_kvquant.py``'s bound, with ``cache_bytes`` equal to the
    tensors' bytes, 64 decode steps, a prefill of 2 x 4096 (the window
@@ -222,7 +252,7 @@ fence-routed shards, windows of 8192 operations.  Phases:
    range-bearing window) on the sharded path and on ``[mesh]``'s ranks
    together, ``flash_attention_fwd``
    once an attention layer of every GQA prefill and forward (griffin's
-   12 of 38) and twice one of every train step (MLA takes the plain
+   4 of 14) and twice one of every train step (MLA takes the plain
    attention, mamba2 has none).  The script prints its own time.
 
 ``--profile N`` adds device time by kernel over N point windows, N
@@ -285,6 +315,18 @@ MESH_MOE_B, MESH_MOE_S = 8, 2048      # [mesh:moe]'s tokens
 MESH_MOE_CF = 6.0    # Ep / K: a capacity of every local token, drop-free
 MESH_PSUM_N = 1 << 20
 MESH_PIPE = dict(L=8, M=8, mb=256, d=1024)
+# [mesh:train]: the LM over a (2, 2) ("data", "model") mesh of gloo ranks
+MESH_TRAIN_SHAPE = (2, 2)
+# (a): steps of phi3 at its full width and depth on 4 x 2048 tokens, the
+# first a warm-up (its loss held to [train]'s first; the p50 is the later
+# steps').  A third step would take the phase past 300 s (317 s measured
+# with three on one H100)
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_TOL = 2e-2            # (a), (c): bf16 losses, relative
+MESH_CHECK_B, MESH_CHECK_S = 2, 256      # (b): the float32 strict check
+MESH_TRAIN_MOE_B, MESH_TRAIN_MOE_S = 4, 512   # (d): granite's gradients
+MESH_ELASTIC_STEPS = 4           # (c): checkpoints after steps 2 and 3
+MESH_ELASTIC_LAYERS = 1          # ... of phi3 at full width
 CRASH_POINTS = ("wal.mid_append", "wal.after_append", "wal.pre_sync",
                 "ckpt.mid_write", "ckpt.pre_rename")
 LM_ARCH = "phi3-mini-3.8b"
@@ -292,12 +334,25 @@ MOE_ARCH = "granite-moe-3b-a800m"
 MLA_ARCH = "deepseek-v3-671b"
 SSM_ARCH = "mamba2-2.7b"
 GRIFFIN_ARCH = "recurrentgemma-9b"
-# the full-width models' parameters by their layouts: phi3's vocab padded
-# to 32256; granite's vocab padded to 49408 and its 48 padded experts;
-# mamba2's vocab padded to 50432; recurrentgemma's 12 groups and 2 tail
-# layers
+# the LM phases' depths where cut from the published ones, to keep the
+# script inside its 1200 s with [mesh:train] at phi3's full depth:
+# mamba2's 64 layers halved, recurrentgemma's 38 cut to 4 groups and the
+# tail of 2 (the draw on the host and the host-bound decode steps are
+# near proportional to the layers).  Measured on one H100: the script
+# took 983.7 s with both cut and 1096.5 s with mamba2 at 64 (recurrent-
+# gemma's 38 add ~81 s more), while one machine ran the same script 13 %
+# slower than another: only both cuts keep that much margin.  granite-
+# moe keeps its 32: at 16 layers, another draw, its float32 prefill-vs-
+# decode check missed its bar by a routing near-tie (the cache's k
+# 0.0472 apart against 0.00496)
+LM_DEPTH = {SSM_ARCH: 32, GRIFFIN_ARCH: 14}
+# the full-width models' parameters by their layouts at those depths:
+# phi3's vocab padded to 32256; granite's vocab padded to 49408 and its
+# 48 padded experts; mamba2's vocab padded to 50432 (2,702,968,320 at 64
+# layers); recurrentgemma's 4 groups and 2 tail layers (8,524,206,080 at
+# its 12 groups)
 LM_PARAMS = {LM_ARCH: 3_822_259_200, MOE_ARCH: 3_903_161_856,
-             SSM_ARCH: 2_702_968_320, GRIFFIN_ARCH: 8_524_206_080}
+             SSM_ARCH: 1_416_038_400, GRIFFIN_ARCH: 3_808_956_416}
 MLA_LAYER_PARAMS = 187_107_328   # [lm:mla] (i): one MLA layer of deepseek
 MLA_B, MLA_S = 2, 512            # ... its prefill
 MLA_DECODE = 16                  # ... and decode steps over its cache
@@ -2132,8 +2187,10 @@ def mesh_rank(rank, world, backend, tmp, programs):
     ``FileStore`` under ``tmp``, runs ``programs`` on the card and writes
     its results to ``tmp/<backend>-rank<r>.pkl``."""
     import datetime
+    import faulthandler
     import pickle
     import torch.distributed as tdist
+    faulthandler.enable()          # a rank that crashes prints its stack
     if DEVICE == "cuda":
         torch.cuda.set_device(0)
     # the ranks share the host's cores
@@ -2161,6 +2218,9 @@ def mesh_rank(rank, world, backend, tmp, programs):
         if "pipe" in programs:
             out["pipe"] = mesh_pipe(lmesh.make_mesh(
                 (world,), ("stage",), device_type=DEVICE, timeout=timeout))
+        lm = [p for p in programs if p.startswith("lm_")]
+        if lm:
+            out.update(mesh_lm(rank, world, lm, tmp, timeout))
         torch.cuda.synchronize()
         with open(os.path.join(tmp, f"{backend}-rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -2822,6 +2882,16 @@ def attn_layers(cfg) -> int:
     return cfg.n_layers
 
 
+def lm_config(arch):
+    """``arch``'s published config at its ``LM_DEPTH`` (the LM phases')."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in LM_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch])
+    return cfg
+
+
 def layout_params(cfg) -> int:
     """``cfg``'s parameter count by its layout (meta tensors, no storage)."""
     from repro_torch.models import abstract_params, model_layout
@@ -2897,12 +2967,11 @@ def run_lm(arch):
     counts of its prefill, its float32 and compute-dtype weights and its
     numbers."""
     import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.models import (cast_floats, forward, make_decode_step,
                                     make_prefill_step)
     from repro_torch.models import moe
     from repro_torch.models.base import tree_leaves
-    cfg = get_config(arch)
+    cfg = lm_config(arch)
     is_moe = cfg.family == "moe"
     tag = LM_TAGS[cfg.family]
     rng = np.random.default_rng(SEED)
@@ -3529,9 +3598,8 @@ def run_train_moe(params32, profile):
     from ``[lm:moe]``'s float32 ``params32``, (c) its widths at
     ``CHECK_LAYERS`` layers, card against CPU.  Returns the launch counts
     of (b)."""
-    from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    launches, full = train_full_width(get_config(MOE_ARCH), params32,
+    launches, full = train_full_width(lm_config(MOE_ARCH), params32,
                                       profile, "[train:moe]")
     del params32
     log(f"[time] [train:moe] (b) {time.perf_counter() - t0:.3f} s")
@@ -3723,13 +3791,12 @@ def griffin_smoke_config():
 
 
 def run_train_ssm(params32, profile):
-    """``[train:ssm]``: (b) mamba2-2.7b at full width and depth from
-    ``[lm:ssm]``'s float32 ``params32``, (c) its widths at
+    """``[train:ssm]``: (b) mamba2-2.7b at full width and ``LM_DEPTH``
+    from ``[lm:ssm]``'s float32 ``params32``, (c) its widths at
     ``CHECK_LAYERS`` layers, card against CPU.  Returns the launch counts
     of (b)."""
-    from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    launches, full = train_full_width(get_config(SSM_ARCH), params32,
+    launches, full = train_full_width(lm_config(SSM_ARCH), params32,
                                       profile, "[train:ssm]")
     del params32
     log(f"[time] [train:ssm] (b) {time.perf_counter() - t0:.3f} s")
@@ -3744,9 +3811,8 @@ def run_train_griffin(params32, profile):
     ``[lm:griffin]``'s float32 draw and its two tail layers, copied out
     before the full draw is freed.  Returns the launch counts."""
     import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.models.base import tree_map
-    full = get_config(GRIFFIN_ARCH)
+    full = lm_config(GRIFFIN_ARCH)
     g = GRIFFIN_TRAIN_GROUPS
     cfg = dataclasses.replace(full, n_layers=3 * g + full.n_layers % 3)
     cut = {k: v for k, v in params32.items() if k != "blocks"}
@@ -3763,6 +3829,435 @@ def run_train_griffin(params32, profile):
     log(f"[time] [train:griffin] {time.perf_counter() - t0:.3f} s")
     return launches, out
 
+
+# ---------------------------------------------------------------------------
+# [mesh:train]: the LM across ranks
+# ---------------------------------------------------------------------------
+
+def mesh_lm(rank, world, programs, tmp, timeout):
+    """``[mesh:train]``'s programs on this rank, each a ``mesh_<name>``:
+    the gloo ranks' (2, 2) ("data", "model") mesh, or one NCCL rank's
+    (1, 1)."""
+    from repro_torch.launch import mesh as lmesh
+    shape = MESH_TRAIN_SHAPE if world > 1 else (1, 1)
+    dm = lmesh.make_mesh(shape, ("data", "model"), device_type=DEVICE,
+                         timeout=timeout)
+    out = {}
+    for prog in programs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[prog] = globals()[f"mesh_{prog}"](rank, dm, tmp)
+        torch.cuda.synchronize()
+        out[prog]["seconds_all"] = time.perf_counter() - t0
+    return out
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes (any dtype)."""
+    import hashlib
+    raw = t.detach().contiguous().reshape(-1).cpu().view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def mesh_lm_a(rank, dm, tmp):
+    """(a): phi3-mini-3.8b at its full width and depth, bfloat16 compute
+    and moments (``train_opt``), its state drawn onto the mesh from
+    ``SEED`` (each rank draws every leaf on the host and keeps its
+    block), ``MESH_TRAIN_STEPS`` steps of ``make_train_step`` on
+    ``[train]``'s batches."""
+    from repro_torch import data
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps
+    cfg = get_config(LM_ARCH)
+    opt = train_opt()
+    t0 = time.perf_counter()
+    sh = steps.train_state_shardings(cfg, opt, dm)
+    p, o = steps.init_train_state(cfg, opt, torch.Generator().manual_seed(
+        SEED), shardings=sh)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=SEED)
+    step = steps.make_train_step(cfg, opt)
+    losses, norms, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with shd.use_mesh(dm):
+        for i in range(MESH_TRAIN_STEPS):
+            b = steps.place_batch(data.lm_batch(dcfg, i, device="cpu"), dm)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, o, m = step(p, o, b)
+            losses.append(float(shd.local(m["loss"])))
+            norms.append(float(shd.local(m["grad_norm"])))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    return dict(losses=losses, norms=norms, times=times,
+                peak=torch.cuda.max_memory_allocated(), state_gib=state_gib,
+                t_init=t_init, launches=launch_counts(),
+                local_heads=p["blocks"]["attn"]["wq"].to_local().shape[-1]
+                // cfg.hd)
+
+
+def strict_config():
+    """(b)'s model: phi3's widths at ``CHECK_LAYERS`` layers in float32,
+    AdamW with float32 moments (``[train]`` (c)'s)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return (dataclasses.replace(get_config(LM_ARCH), n_layers=CHECK_LAYERS,
+                                compute_dtype="float32"),
+            train_opt(moment_dtype="float32"))
+
+
+def strict_batch(cfg, device):
+    from repro_torch import data
+    return data.lm_batch(data.DataConfig(
+        vocab=cfg.vocab, seq_len=MESH_CHECK_S, global_batch=MESH_CHECK_B,
+        seed=SEED + 5), 0, device=device)
+
+
+def mesh_lm_b(rank, dm, tmp):
+    """(b): the float32 strict check's step on the mesh, its loss,
+    gradients and updated parameters gathered, and on rank 0 the same
+    step in one process on the card (no mesh) from the same draw, the two
+    compared under ``CARD_CPU_TOL``.  The state is drawn on the host and
+    placed, every rank keeping its block, both timed."""
+    from repro_torch import optim
+    from repro_torch import sharding as shd
+    from repro_torch.models import init_params, model_layout, steps
+    from repro_torch.models.base import tree_map
+    cfg, opt = strict_config()
+    sh = steps.train_state_shardings(cfg, opt, dm)
+    t0 = time.perf_counter()
+    host = init_params(model_layout(cfg), torch.Generator().manual_seed(
+        SEED + 5), cfg.param_dtype, "cpu")
+    t_draw = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = shd.place(host, sh["params"])
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    o = steps.init_opt_state(cfg, opt, sh)
+    b = steps.place_batch(strict_batch(cfg, "cpu"), dm)
+    with shd.use_mesh(dm):
+        (loss, _), grads = steps.loss_and_grad(cfg, p, b)
+        # a copy: the update clips the gradients in place
+        g_mesh = tree_map(lambda g: shd.full(g).to("cpu", copy=True), grads)
+        p, _, gn = optim.update(opt, grads, o, p)
+        p_mesh = tree_map(lambda x: shd.full(x).cpu(), p)
+    out = dict(place_s=place_s, t_draw=t_draw)
+    if rank != 0:
+        return out
+    del p, o, grads
+    one = tree_map(lambda a: a.to(DEVICE), host)
+    (loss1, _), grads = steps.loss_and_grad(cfg, one, strict_batch(cfg,
+                                                                   DEVICE))
+    g_one = tree_map(lambda g: g.to("cpu", copy=True), grads)
+    one, _, gn1 = optim.update(opt, grads, optim.init(opt, one), one)
+    lr = optim.schedule(opt, torch.tensor(1)).item()
+    moved, share, n_near, worst, strict = adam_step_share(
+        p_mesh, one, g_mesh, g_one, opt, lr)
+    grad_err, grad_leaf = tree_max_err(g_mesh, g_one)
+    out.update(loss=float(shd.local(loss)), loss1=loss1.item(),
+               gn=float(gn), gn1=gn1.item(), grad_err=grad_err,
+               grad_leaf=grad_leaf, moved=moved, lr=lr, share=share,
+               n_near=n_near, worst=worst, strict=strict)
+    return out
+
+
+def elastic_setup():
+    import dataclasses
+    from repro_torch import data
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=MESH_ELASTIC_LAYERS)
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=DRIVER_S,
+                           global_batch=DRIVER_B, seed=SEED)
+    loop = T.TrainLoopConfig(steps=MESH_ELASTIC_STEPS,
+                             ckpt_every=MESH_ELASTIC_STEPS - 2,
+                             sync_ckpt=True, seed=SEED)
+    return cfg, dcfg, loop
+
+
+def mesh_lm_c(rank, dm, tmp):
+    """(c): ``launch/train.py::train`` over the mesh at phi3's widths and
+    ``MESH_ELASTIC_LAYERS`` layers (bfloat16), checkpoints after the last
+    two steps; the digests of its final state, gathered."""
+    import dataclasses
+    from repro_torch.launch import train as T
+    cfg, dcfg, loop = elastic_setup()
+    t0 = time.perf_counter()
+    res = T.train(cfg, train_opt(), dataclasses.replace(
+        loop, ckpt_dir=os.path.join(tmp, "elastic")), dcfg, mesh=dm)
+    return dict(losses=res.losses, seconds=time.perf_counter() - t0,
+                digests=[digest(x.full_tensor()) for _, x in
+                         named_leaves(res.state)])
+
+
+def mesh_lm_c1(rank, dm, tmp):
+    """(c) on one NCCL rank: the four ranks' last checkpoint restored
+    onto this mesh (digests), and ``train`` resumed from the one before
+    it for the last step."""
+    import dataclasses
+    from repro_torch import sharding as shd
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as T
+    from repro_torch.models import steps
+    cfg, dcfg, loop = elastic_setup()
+    opt = train_opt()
+    d4 = os.path.join(tmp, "elastic")
+    mgr = CheckpointManager(d4)
+    last = mgr.latest_step()
+    params, _, ostate, _ = steps.abstract_train_state(cfg, opt)
+    t0 = time.perf_counter()
+    st = mgr.restore(last, {"params": params, "opt": ostate},
+                     steps.train_state_shardings(cfg, opt, dm))
+    t_restore = time.perf_counter() - t0
+    digests = [digest(shd.full(x)) for _, x in named_leaves(st)]
+    del st
+    d1 = os.path.join(tmp, "elastic1")
+    shutil.copytree(os.path.join(d4, f"step_{last - 1}"),
+                    os.path.join(d1, f"step_{last - 1}"))
+    res = T.train(cfg, opt, dataclasses.replace(loop, ckpt_dir=d1), dcfg,
+                  mesh=dm)
+    return dict(last=last, digests=digests, t_restore=t_restore,
+                losses=res.losses, restored=res.restored_from)
+
+
+def moe_check_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=CHECK_LAYERS,
+                               compute_dtype="float32", moe_capacity=64.0)
+
+
+def moe_check_batch(cfg, device):
+    from repro_torch import data
+    return data.lm_batch(data.DataConfig(
+        vocab=cfg.vocab, seq_len=MESH_TRAIN_MOE_S,
+        global_batch=MESH_TRAIN_MOE_B, seed=SEED + 6), 0, device=device)
+
+
+def mesh_lm_d(rank, dm, tmp):
+    """(d): granite-moe's widths at ``CHECK_LAYERS`` layers in float32,
+    drop-free: ``loss_and_grad`` over the mesh, every MoE layer through
+    ``moe_apply_shardmap`` (counted), gradients gathered; rank 0 takes
+    the same gradients in one process (``moe_apply``) and compares."""
+    from repro_torch import sharding as shd
+    from repro_torch.models import init_params, model_layout, moe, steps
+    from repro_torch.models.base import tree_map
+    cfg = moe_check_config()
+    sh = steps.train_state_shardings(cfg, train_opt(), dm)
+    p = init_params(model_layout(cfg), torch.Generator().manual_seed(
+        SEED + 6), cfg.param_dtype, shardings=sh["params"])
+    b = steps.place_batch(moe_check_batch(cfg, "cpu"), dm)
+    calls = []
+    inner = moe.moe_apply_shardmap
+
+    def counted(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+    moe.moe_apply_shardmap = counted
+    try:
+        with shd.use_mesh(dm):
+            (loss, m), grads = steps.loss_and_grad(cfg, p, b)
+            g_full = tree_map(lambda g: shd.full(g).cpu(), grads)
+    finally:
+        moe.moe_apply_shardmap = inner
+    out = dict(calls=len(calls),
+               experts_local=p["blocks"]["moe"]["experts"]["w_up"]
+               .to_local().shape[1])
+    if rank != 0:
+        return out
+    del p, grads
+    one = init_params(model_layout(cfg), torch.Generator().manual_seed(
+        SEED + 6), cfg.param_dtype, DEVICE)
+    (loss1, m1), grads = steps.loss_and_grad(cfg, one,
+                                             moe_check_batch(cfg, DEVICE))
+    grad_err, grad_leaf = tree_max_err(g_full, grads)
+    out.update(loss=float(shd.local(loss)), loss1=loss1.item(),
+               lb=float(shd.local(m["lb_loss"])), lb1=m1["lb_loss"].item(),
+               grad_err=grad_err, grad_leaf=grad_leaf)
+    return out
+
+
+def mesh_lm_e(rank, dm, tmp):
+    """(e) on one NCCL rank: (a)'s step at ``CHECK_LAYERS`` layers through
+    the one-rank mesh and without a mesh, from one draw and batch,
+    deterministic algorithms on (the embedding's backward adds without
+    atomics): the loss, the gradient norm and every leaf of the updated
+    state, bit for bit."""
+    import dataclasses
+    from repro_torch import data
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=CHECK_LAYERS)
+    opt = train_opt()
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=SEED)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, mesh in (("mesh", dm), ("plain", None)):
+            sh = None if mesh is None else \
+                steps.train_state_shardings(cfg, opt, mesh)
+            p, o = steps.init_train_state(
+                cfg, opt, torch.Generator().manual_seed(SEED), DEVICE,
+                shardings=sh)
+            b = data.lm_batch(dcfg, 0, device="cpu")
+            b = steps.place_batch(b, mesh) if mesh is not None else \
+                {k: v.to(DEVICE) for k, v in b.items()}
+            with shd.use_mesh(mesh):
+                p, o, m = steps.make_train_step(cfg, opt)(p, o, b)
+            out[name] = (float(shd.local(m["loss"])),
+                         float(shd.local(m["grad_norm"])),
+                         [digest(shd.full(x)) for _, x in
+                          named_leaves({"params": p, "opt": o})])
+            del p, o
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(mesh=out["mesh"], plain=out["plain"])
+
+
+def run_mesh_train(train_first_loss):
+    """Phase ``[mesh:train]`` (see the module docstring); ``train_first_
+    loss`` is ``[train]`` (b)'s one-process first loss at full depth.
+    Returns the flash launches of (a), the main path, summed over the
+    ranks."""
+    import tempfile
+    card = card_line()
+    ref = train_first_loss
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh-train-", dir=build_dir)
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        outs = spawn_ranks(MESH_RANKS, "gloo", tmp,
+                           ["lm_a", "lm_b", "lm_c", "lm_d"])
+        t_gloo = time.perf_counter() - t0
+        # -- (a) ------------------------------------------------------------
+        a = [o["lm_a"] for o in outs]
+        losses = a[0]["losses"]
+        assert all(x["losses"] == losses for x in a), \
+            [x["losses"] for x in a]
+        err = abs(losses[0] - ref) / abs(ref)
+        times = np.array(a[0]["times"]) * 1e3
+        # the first step is a warm-up: the p50 is over the later ones
+        p50 = float(np.percentile(times[1:], 50))
+        flash = [x["launches"]["flash_attention_fwd"] for x in a]
+        want = 2 * LM_LAYERS * MESH_TRAIN_STEPS
+        for r, x in enumerate(a):
+            log(f"[mesh:train] (a) rank {r}: state {x['state_gib']:.3f} GiB "
+                f"drawn onto the mesh in {x['t_init']:.3f} s, peak device "
+                f"memory {x['peak'] / 2 ** 30:.3f} GiB, step times "
+                f"{[round(t * 1e3, 3) for t in x['times']]} ms, flash "
+                f"launches {x['launches']['flash_attention_fwd']} on "
+                f"{x['local_heads']} local heads ({card})")
+        log(f"[mesh:train] (a) phi3-mini-3.8b at full width, "
+            f"{LM_LAYERS} layers, bfloat16, AdamW with bfloat16 "
+            f"moments, {MESH_TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} "
+            f"tokens on a {MESH_TRAIN_SHAPE} (data, model) mesh of "
+            f"{MESH_RANKS} gloo ranks sharing the card: losses {losses} on "
+            f"every rank, grad norms {a[0]['norms']}; the first loss "
+            f"{err:.3e} from the one-process step's {ref:.9g} (bar "
+            f"{MESH_TRAIN_TOL:g}); the warm-up step {times[0]:.3f} ms, "
+            f"step p50 {p50:.6f} ms over the {len(times) - 1} after it "
+            f"({TRAIN_B * TRAIN_S / p50 * 1e3:.1f} tokens/s), peak "
+            f"{max(x['peak'] for x in a) / 2 ** 30:.3f} GiB a rank; flash "
+            f"kernel launches a rank {flash} (2 a layer a step: {want}); "
+            f"{card}")
+        assert err <= MESH_TRAIN_TOL, (losses[0], ref)
+        assert all(np.isfinite(losses + a[0]["norms"]))
+        assert all(f == want for f in flash), flash
+        counts = {}
+        for x in a:
+            for k, v in x["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        # -- (b) ------------------------------------------------------------
+        b = outs[0]["lm_b"]
+        loss_err = abs(b["loss"] - b["loss1"]) / abs(b["loss1"])
+        log(f"[mesh:train] (b) {CHECK_LAYERS} layers of phi3 at full width "
+            f"in float32, {MESH_CHECK_B} x {MESH_CHECK_S} tokens, one AdamW "
+            f"step on the {MESH_RANKS} ranks against one process on the "
+            f"card: loss {b['loss']:.9g} vs {b['loss1']:.9g} (relative "
+            f"{loss_err:.3g}, bar {CARD_CPU_TOL['loss']:g}); grad norm "
+            f"{b['gn']:.9g} vs {b['gn1']:.9g}; gradients: largest error "
+            f"{b['grad_err']:.3g} of its leaf's largest (leaf "
+            f"{b['grad_leaf']}; bar {CARD_CPU_TOL['grad']:g}); parameters: "
+            f"largest difference {b['moved']:.3g} = "
+            f"{b['moved'] / b['lr']:.3g} lr, the largest share of its bar "
+            f"{b['share']:.3g} ({b['n_near']} elements near 0 held to 2 "
+            f"lr; {b['worst']}; of 0.1 lr everywhere {b['strict']:.3g}); "
+            f"the state drawn on the host in {b['t_draw']:.3f} s and placed "
+            f"in {b['place_s']:.3f} s, every rank keeping its block; "
+            f"{card}")
+        assert loss_err <= CARD_CPU_TOL["loss"], loss_err
+        assert b["grad_err"] <= CARD_CPU_TOL["grad"], b["grad_err"]
+        assert b["share"] <= 1.0, (b["moved"], b["share"], b["worst"])
+        # -- (d) ------------------------------------------------------------
+        d = [o["lm_d"] for o in outs]
+        loss_err = abs(d[0]["loss"] - d[0]["loss1"]) / abs(d[0]["loss1"])
+        log(f"[mesh:train] (d) granite-moe-3b-a800m's widths at "
+            f"{CHECK_LAYERS} layers in float32, drop-free (capacity factor "
+            f"64), {MESH_TRAIN_MOE_B} x {MESH_TRAIN_MOE_S} tokens: "
+            f"{d[0]['calls']} calls of moe_apply_shardmap a rank with "
+            f"{d[0]['experts_local']} experts each; loss {d[0]['loss']:.9g} "
+            f"vs one process's moe_apply {d[0]['loss1']:.9g} (relative "
+            f"{loss_err:.3g}), lb_loss {d[0]['lb']:.9g} vs "
+            f"{d[0]['lb1']:.9g}; gradients: largest error "
+            f"{d[0]['grad_err']:.3g} of its leaf's largest (leaf "
+            f"{d[0]['grad_leaf']}; bar 1e-5); {card}")
+        e_rank = moe_check_config().experts_padded // MESH_TRAIN_SHAPE[1]
+        assert all(x["calls"] >= CHECK_LAYERS and
+                   x["experts_local"] == e_rank for x in d), d
+        assert d[0]["grad_err"] <= 1e-5, (d[0]["grad_err"],
+                                          d[0]["grad_leaf"])
+        # -- (c), (e): one NCCL rank ----------------------------------------
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(1, "nccl", tmp, ["lm_c1", "lm_e"])[0]
+        t_nccl = time.perf_counter() - t0
+        c4 = outs[0]["lm_c"]
+        c1 = nccl["lm_c1"]
+        assert all(o["lm_c"]["digests"] == c4["digests"] for o in outs)
+        assert c1["digests"] == c4["digests"], "restored != gathered"
+        assert c1["restored"] == c1["last"] - 1 and len(c1["losses"]) == 1
+        c_err = abs(c1["losses"][0] - c4["losses"][-1]) / \
+            abs(c4["losses"][-1])
+        log(f"[mesh:train] (c) launch/train.py::train over the "
+            f"{MESH_RANKS} ranks, {MESH_ELASTIC_LAYERS} layer of phi3 at "
+            f"full width, {DRIVER_B} x "
+            f"{DRIVER_S} tokens, checkpoints after steps "
+            f"{MESH_ELASTIC_STEPS - 2} and {MESH_ELASTIC_STEPS - 1}: losses "
+            f"{c4['losses']} in {c4['seconds']:.3f} s; 1 NCCL rank restored "
+            f"its step-{c1['last']} checkpoint onto a one-rank mesh in "
+            f"{c1['t_restore']:.3f} s, all {len(c4['digests'])} leaves bit "
+            f"for bit the state the ranks gathered; resumed from step "
+            f"{c1['restored']}, its step {c1['last']} loss "
+            f"{c1['losses'][0]:.9g} vs the {MESH_RANKS} ranks' "
+            f"{c4['losses'][-1]:.9g} (relative {c_err:.3g}, bar "
+            f"{MESH_TRAIN_TOL:g})")
+        assert c_err <= MESH_TRAIN_TOL, c_err
+        e = nccl["lm_e"]
+        assert e["mesh"] == e["plain"], (e["mesh"][:2], e["plain"][:2])
+        log(f"[mesh:train] (e) 1 NCCL rank, (a)'s step at {CHECK_LAYERS} "
+            f"layers through a one-rank (1, 1) mesh and without one, "
+            f"deterministic algorithms: loss {e['mesh'][0]:.9g}, grad norm "
+            f"{e['mesh'][1]:.9g}, all {len(e['mesh'][2])} leaves of the "
+            f"updated state bit for bit equal; {t_nccl:.3f} s with the "
+            f"spawn.  The {MESH_RANKS} gloo ranks took {t_gloo:.3f} s with "
+            f"the spawn; rank 0's programs: " + ", ".join(
+                f"{k} {v['seconds_all']:.3f} s" for k, v in
+                list(outs[0].items()) + list(nccl.items())
+                if isinstance(v, dict) and "seconds_all" in v))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
 
 def run_mla():
     """``[lm:mla]``: deepseek-v3-671b in the two forms one card holds."""
@@ -3966,8 +4461,12 @@ def main(argv=None) -> int:
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 11. training: the flash kernel under autograd, phi3-mini steps ----
-    train_launches, _ = run_train(params32, args.profile, 3)
+    train_launches, train_out = run_train(params32, args.profile, 3)
     del params32
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 11b. the LM across ranks ------------------------------------------
+    mesh_train_launches = run_mesh_train(train_out["full"]["losses"][0])
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 12. the moe family: granite-moe-3b-a800m served ------------------
@@ -4024,18 +4523,23 @@ def main(argv=None) -> int:
         sharded_launches
     assert sharded_launches["pi_range"] >= SHARDS, sharded_launches
     assert overload_launches["pi_probe"] >= 1, overload_launches
-    # griffin: its 12 attention layers once a prefill, twice a train step
-    assert griffin_launches["flash_attention_fwd"] == 12, griffin_launches
+    # griffin: its attention layers once a prefill, twice a train step
+    assert griffin_launches["flash_attention_fwd"] == \
+        attn_layers(lm_config(GRIFFIN_ARCH)), griffin_launches
     assert train_griffin_launches["flash_attention_fwd"] == \
         2 * GRIFFIN_TRAIN_GROUPS * TRAIN_STEPS, train_griffin_launches
     assert ssm_launches["flash_attention_fwd"] == 0 == \
         train_ssm_launches["flash_attention_fwd"]
+    # [mesh:train] (a): each rank twice a layer a step
+    assert mesh_train_launches["flash_attention_fwd"] == \
+        MESH_RANKS * 2 * LM_LAYERS * MESH_TRAIN_STEPS, \
+        mesh_train_launches
     assert mesh_launches["pi_probe"] == mesh_launches["bitonic_sort"] >= \
         2 * SHARDS * SHARD_WINDOWS and mesh_launches["pi_range"] >= \
         2 * SHARDS, mesh_launches
     paths = (launches, serve_launches, durable_launches, sharded_launches,
              mesh_launches, overload_launches, lm_launches, serve_lm_launches,
-             train_launches, moe_launches, serve_moe_launches,
+             train_launches, mesh_train_launches, moe_launches, serve_moe_launches,
              train_moe_launches, ssm_launches, serve_ssm_launches,
              train_ssm_launches, griffin_launches, serve_griffin_launches,
              train_griffin_launches)

@@ -16,7 +16,13 @@ snapshot written by either package restores in the other:
   * ``restore`` checks every leaf's shape and dtype against the target
     and places the tensors on the card unless asked otherwise — or, given
     ``shardings``, each leaf where that tree says: the elastic restore,
-    onto another placement than the one saved.
+    onto another placement than the one saved;
+  * across ranks (a tree of DTensors, ``sharding.place``) every rank
+    gathers each leaf (``full_tensor``), rank 0 alone writes the same
+    files as one process, and the other ranks wait for it at a barrier;
+    ``restore`` onto ``(DeviceMesh, placements)`` leaves has every rank
+    read the files and keep its own blocks — saved on one mesh, restored
+    on another or in one process.
 
 A bfloat16 leaf, which numpy lacks, is written as the JAX package writes
 it: its raw 2-byte words as a ``|V2`` array (``BF16_ON_DISK``).
@@ -43,6 +49,9 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as tdist
+
+from repro_torch import sharding as shd
 from repro_torch.core import index as pi
 from repro_torch.core.distributed import Mesh
 from repro_torch.faults import faultpoint
@@ -72,10 +81,13 @@ def _flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
     return [tree], lambda xs: xs[0]
 
 
-def _placements(tree, shardings) -> List[torch.device]:
-    """One device a leaf of ``tree``.  ``shardings`` follows the tree's
-    structure down to some node; there a device (or a ``Mesh``: its
-    device) places every leaf below it."""
+def _placements(tree, shardings) -> list:
+    """One device, or one ``(DeviceMesh, placements)`` pair, a leaf of
+    ``tree``.  ``shardings`` follows the tree's structure down to some
+    node; there a device (or a ``Mesh``: its device) or a pair places
+    every leaf below it."""
+    if shd.is_sharding(shardings):
+        return [shardings] * len(_flatten(tree)[0])
     if isinstance(shardings, Mesh):
         shardings = shardings.device
     if isinstance(shardings, (torch.device, str)):
@@ -99,10 +111,15 @@ def _placements(tree, shardings) -> List[torch.device]:
 BF16_ON_DISK = np.dtype("V2")    # a bfloat16 leaf's words in host0.npz
 
 
-def _host_copy(leaf) -> np.ndarray:
-    """A numpy copy of a leaf that no later write to the leaf can reach."""
+def _host_copy(leaf, keep: bool = True) -> Optional[np.ndarray]:
+    """A numpy copy of a leaf that no later write to the leaf can reach
+    (a DTensor's whole value: every rank takes part in the gather, and
+    only a rank that ``keep``s it copies it to the host)."""
     if isinstance(leaf, torch.Tensor):
-        host = leaf.detach().to("cpu", copy=True)
+        whole = shd.full(leaf.detach())
+        if not keep:
+            return None
+        host = whole.to("cpu", copy=True)
         if host.dtype == torch.bfloat16:
             return host.view(torch.int16).numpy().view(BF16_ON_DISK)
         return host.numpy()
@@ -131,15 +148,26 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
+        self._barrier = False      # ranks wait for rank 0's write
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: bool = False,
              meta: Optional[dict] = None):
-        """Checkpoint a tree of tensors (async unless ``blocking``)."""
+        """Checkpoint a tree of tensors (async unless ``blocking``).  A
+        tree of DTensors is saved by every rank together: each leaf is
+        gathered, rank 0 writes, and the others return once it has
+        (``wait``)."""
         self.wait()
         leaves, _ = _flatten(tree)
+        self._barrier = any(shd.is_dtensor(leaf) for leaf in leaves) and \
+            tdist.is_initialized()
+        writer = not self._barrier or tdist.get_rank() == 0
         # snapshot to host memory NOW (later updates must not race)
-        host_leaves = [_host_copy(leaf) for leaf in leaves]
+        host_leaves = [_host_copy(leaf, writer) for leaf in leaves]
+        if not writer:
+            if blocking:
+                self.wait()
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f"step_{step}.tmp")
@@ -167,6 +195,7 @@ class CheckpointManager:
 
         if blocking:
             _write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=_write_captured,
                                             daemon=True)
@@ -182,6 +211,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            tdist.barrier()
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise exc
@@ -219,8 +251,10 @@ class CheckpointManager:
         give only shapes and dtypes, so it may live on the ``meta``
         device (``core.index.leaf_spec``).  ``shardings``, if given,
         places the leaves instead (elastic restore): a tree of the
-        target's structure whose leaves are devices, or a device or a
-        one-device ``Mesh`` for every leaf below a node."""
+        target's structure whose leaves are devices or ``(DeviceMesh,
+        placements)`` pairs (``sharding.tree_shardings``: each rank keeps
+        its blocks), or a device, a one-device ``Mesh`` or a pair for
+        every leaf below a node."""
         leaves, rebuild = _flatten(target_tree)
         path = os.path.join(self.dir, f"step_{step}", "host0.npz")
         with np.load(path) as z:
@@ -236,7 +270,8 @@ class CheckpointManager:
         places = _placements(target_tree, shardings) \
             if shardings is not None else \
             [pi._device(device)] * len(loaded)
-        return rebuild([_from_disk(a, want).to(d)
+        return rebuild([shd.place_tensor(_from_disk(a, want), *d)
+                        if shd.is_sharding(d) else _from_disk(a, want).to(d)
                         for a, want, d in zip(loaded, leaves, places)])
 
     def restore_latest(self, target_tree: Any, shardings: Any = None, *,

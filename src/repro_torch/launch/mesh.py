@@ -14,6 +14,15 @@ cluster).  The world size must be the mesh's size.  Every axis's process
 group is created with ``timeout``, so that a rank that diverges fails its
 peers' next collective instead of hanging them.  The caller names the
 device type: nothing here picks the CPU when it finds no card.
+
+``gloo`` ranks that share a card (NCCL refuses two ranks on one GPU)
+take CUDA tensors in c10d's collectives, copied through the host inside
+``gloo``, but its functional ``all_gather_into_tensor`` on CUDA tensors
+ends the process with a segmentation fault (torch 2.11).  DTensor's
+redistributions run on those functional collectives, so a ``gloo`` mesh
+on the card makes them copy their operands to the host, run there and
+copy the result back (``_stage_functional_collectives``): the same bytes
+``gloo`` would copy, the same sums.
 """
 from __future__ import annotations
 
@@ -24,6 +33,33 @@ import torch.distributed as tdist
 from torch.distributed.device_mesh import init_device_mesh
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=120)
+
+# the functional collectives DTensor's redistributions call (the names of
+# torch 2.11 and of later releases)
+_STAGED = ("all_gather_tensor", "all_gather_single", "reduce_scatter_tensor",
+           "reduce_scatter_single", "all_reduce", "all_to_all_single")
+
+
+def _staged(fn):
+    def on_host(tensor, *args, **kwargs):
+        if not tensor.is_cuda:
+            return fn(tensor, *args, **kwargs)
+        out = fn(tensor.detach().cpu(), *args, **kwargs)
+        if hasattr(out, "wait"):
+            out = out.wait()
+        return out.to(tensor.device)
+    on_host.__wrapped__ = fn
+    return on_host
+
+
+def _stage_functional_collectives():
+    """Route the functional collectives of CUDA tensors through the host
+    (a ``gloo`` mesh on the card; see the module docstring)."""
+    import torch.distributed._functional_collectives as funcol
+    for name in _STAGED:
+        fn = getattr(funcol, name, None)
+        if fn is not None and not hasattr(fn, "__wrapped__"):
+            setattr(funcol, name, _staged(fn))
 
 
 def _options(backend: str, timeout: datetime.timedelta):
@@ -53,6 +89,8 @@ def make_mesh(shape, axis_names, *, device_type: str,
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
                          f"process group has {world}")
     backend = tdist.get_backend()
+    if backend == "gloo" and device_type == "cuda":
+        _stage_functional_collectives()
     opts = (backend, _options(backend, timeout))
     return init_device_mesh(device_type, shape, mesh_dim_names=axis_names,
                             backend_override={a: opts for a in axis_names})

@@ -12,9 +12,9 @@ weights across the packages leaf for leaf.
 to the target device, so one seed gives the same weights on the CPU and
 on the card: the same layout, init kinds and scales as the JAX package,
 other numbers than ``jax.random`` gives (the parity tests carry the JAX
-package's weights instead).  Sharding has no place on one card, so the
-logical axes (``spec_tree``) are kept for parity only: nothing maps them
-onto devices.
+package's weights instead).  Across ranks each leaf is placed by its
+logical axes (``spec_tree`` → ``sharding.tree_shardings``): ``init_params``
+with ``shardings`` draws the same numbers and keeps each rank's block.
 """
 from __future__ import annotations
 
@@ -190,7 +190,7 @@ def abstract_params(layout: Layout, dtype) -> Dict:
 
 
 def init_params(layout: Layout, generator: torch.Generator, dtype,
-                device=None) -> Dict:
+                device=None, shardings: Optional[Dict] = None) -> Dict:
     """Every parameter of ``layout`` on ``device`` (default: the card):
     zeros / ones, or a normal scaled by 1/sqrt(fan_in) (``scale`` when
     given, 0.02 for ``small``), drawn in float32 on the CPU ``generator``
@@ -198,12 +198,18 @@ def init_params(layout: Layout, generator: torch.Generator, dtype,
     order; a leaf of three or more dims (a stack of layers) one slab of
     its leading dim at a time, each slab copied to the device before the
     next is drawn (host memory stays near one slab); a smaller leaf
-    whole."""
+    whole.
+
+    ``shardings`` (the tree's structure, ``(DeviceMesh, placements)``
+    leaves): every rank draws each leaf whole on the host, in the same
+    order, and keeps its own block as a DTensor on the mesh's device
+    (``sharding.place_tensor``, no collective)."""
+    from repro_torch import sharding as shd
     if generator.device.type != "cpu":
         raise ValueError("init_params draws on a CPU generator, so that a "
                          "seed gives the same weights on every device")
     dt = torch_dtype(dtype)
-    dev = _device(device)
+    dev = torch.device("cpu") if shardings is not None else _device(device)
     flat = {}
     for k in sorted(layout):
         d = layout[k]
@@ -220,6 +226,11 @@ def init_params(layout: Layout, generator: torch.Generator, dtype,
             for slab in (arr if arr.dim() >= 3 else arr[None]):
                 slab.copy_(torch.randn(slab.shape, generator=generator,
                                        dtype=torch.float32).mul_(scale))
+        if shardings is not None:
+            node = shardings
+            for part in k.split("/"):
+                node = node[part]
+            arr = shd.place_tensor(arr, *node)
         flat[k] = arr
     return _unflatten(flat)
 

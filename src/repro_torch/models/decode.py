@@ -25,11 +25,18 @@ families' final states and conv tails, in a new cache.  ``decode_step``
 writes one position of the cache (or the new states) in place and
 attends over it with plain einsums, as the JAX package does outside any
 Pallas kernel; the cache dict it returns holds the tensors it was given.
+
+Across ranks (DTensor parameters and inputs under ``sharding.use_mesh``)
+both keep the reference's ``constrain`` calls; ``prefill`` returns the
+cache placed by ``cache_logical_axes``, and ``decode_step`` writes each
+rank's block of it in place.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import sharding as shd
 from repro_torch.core.index import _device
 from repro_torch.models import griffin as gr
 from repro_torch.models import ssm as ssm_mod
@@ -101,6 +108,38 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int, device=None):
     return out
 
 
+# the logical axes of a cache leaf, by its key
+CACHE_AXES = {
+    "k": ("layers", "batch", "kv_seq", "kv_heads", None),      # (L,B,T,KV,hd)
+    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "c_kv": ("layers", "batch", "kv_seq", None),               # (L,B,T,r)
+    "k_rope": ("layers", "batch", "kv_seq", None, None),       # (L,B,T,1,dr)
+    "pos": ("layers", None),
+    "ssm": ("layers", "batch", "heads", None, None),           # (L,B,H,P,N)
+    "conv": ("layers", "batch", None, "mlp"),                  # (L,B,K-1,C)
+    "h": ("layers", "batch", "mlp"),                           # (L,B,w)
+}
+
+
+def cache_logical_axes(cfg: ModelConfig, cache):
+    """KV caches shard over batch (+ kv_heads); states over batch."""
+    def axes(node, name):
+        if isinstance(node, dict):
+            return {k: axes(v, k) for k, v in node.items()}
+        return CACHE_AXES.get(name, (None,) * node.dim())
+    return axes(cache, None)
+
+
+def _constrain_cache(cfg: ModelConfig, cache):
+    """Every leaf of a cache constrained by ``cache_logical_axes`` (a
+    no-op without a mesh or on one rank)."""
+    def walk(node, lg):
+        if isinstance(node, dict):
+            return {k: walk(v, lg[k]) for k, v in node.items()}
+        return shd.constrain(node, *lg)
+    return walk(cache, cache_logical_axes(cfg, cache))
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -119,8 +158,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
         x = embed_tokens(cfg, params, tokens)
     B = x.shape[0]
     idx = int(idx)
-    positions = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
+    positions = torch.full((B, 1), idx, dtype=torch.int32,
+                           device=shd.local(x).device)
     x = add_positions(cfg, x, positions)
+    x = shd.constrain(x, "batch", None, "embed")
 
     def run(layer_fn, block_params, stack):
         """Every layer of one stack, its cache views written in place:
@@ -141,7 +182,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
         x, new = layer_fn(cfg, p_l, x, cache=c_l)
         for name, t in zip(("ssm", "conv") if cfg.family == "ssm"
                            else ("h", "conv"), new):
-            c_l[name].copy_(t)
+            shd.copy_into(c_l[name], t)
 
     def views(stack, i):
         return {k: c[i] for k, c in stack.items()}
@@ -178,7 +219,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
 
 def _fill_ring(ks, T):
     """Place captured (L,B,S,...) keys into a (L,B,T,...) ring cache.
-    Returns (cache_array, pos (L,T))."""
+    Returns (cache_array, pos (L,T)); a DTensor's blocks are placed
+    alike (the sequence is never split), the positions replicated."""
+    if isinstance(ks, DTensor):
+        cache, pos = _fill_ring(ks.to_local(), T)
+        return shd.like(cache, ks), shd.like(
+            pos, ks, (Replicate(),) * ks.device_mesh.ndim)
     L, B, S = ks.shape[:3]
     dev = ks.device
     if S <= T:
@@ -209,10 +255,11 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
         x = embeds.to(torch_dtype(cfg.compute_dtype))
     else:
         x = embed_tokens(cfg, params, tokens)
+    x = shd.constrain(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     total_len = total_len or S
     T = cache_len(cfg, total_len)
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = torch.arange(S, device=shd.local(x).device).expand(B, S)
     x = add_positions(cfg, x, positions)
 
     def run(layer_fn, block_params):
@@ -276,4 +323,4 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
         new_cache["moe"] = run(moe.moe_layer, params["blocks"]["moe"])
     x = norm(cfg, x, params["final_norm"])
     logits = unembed(cfg, params, x[:, -1:])
-    return logits, new_cache
+    return logits, _constrain_cache(cfg, new_cache)

@@ -17,7 +17,8 @@ attention layers go through ``transformer.attn_apply`` with the window,
 so a prefill launches the flash kernel once an attention layer on the
 card; the rest is plain PyTorch, as the reference is plain ``jnp``.  A
 recurrent block's device time falls in the ``record_function`` span
-``griffin.rec``, its scan in ``griffin.lru``.
+``griffin.rec``, its scan in ``griffin.lru``.  Across ranks the scan runs
+on each rank's block of the batch and the lanes (``sharding.local_call``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.models.base import Layout, ModelConfig, ParamDef, tree_map
 from repro_torch.models.transformer import (attn_apply, attn_layout,
                                             mlp_apply, mlp_layout, norm,
@@ -163,7 +165,9 @@ def rec_apply(cfg: ModelConfig, p: Dict, x, cache=None):
 
     if cache is None:
         with record_function("griffin.lru"):
-            _, h = _rg_lru_scan(a, gated_in)
+            lanes = ("batch", None, "mlp")
+            _, h = shd.local_call(_rg_lru_scan, (a, gated_in),
+                                  (lanes, lanes), (lanes, lanes))
         new_h = h[:, -1]                               # prefill carry
     else:
         h = _fma(a[:, 0], cache["h"], gated_in[:, 0])
@@ -182,7 +186,7 @@ def rec_layer(cfg, p, x, cache=None):
         h, st = rec_apply(cfg, p["rec"], norm(cfg, x, p["ln1"]), cache)
     x = x + h
     x = x + mlp_apply(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
-    return x, st
+    return shd.constrain(x, "batch", "seq", "embed"), st
 
 
 def attn_layer(cfg, p, x, positions, cache=None):
@@ -190,7 +194,7 @@ def attn_layer(cfg, p, x, positions, cache=None):
                        cache=cache, window=cfg.sliding_window)
     x = x + h
     x = x + mlp_apply(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
-    return x, kv
+    return shd.constrain(x, "batch", "seq", "embed"), kv
 
 
 def forward_blocks(cfg: ModelConfig, params, x, positions):
@@ -201,15 +205,17 @@ def forward_blocks(cfg: ModelConfig, params, x, positions):
     remat = cfg.remat and torch.is_grad_enabled()
 
     def group(p_g, h):
+        p_g = shd.gather_fsdp(p_g)
         h, _ = rec_layer(cfg, p_g["g_rec0"], h)
         h, _ = rec_layer(cfg, p_g["g_rec1"], h)
         h, _ = attn_layer(cfg, p_g["g_attn"], h, positions)
         return h
 
     for p_g in unbind_layers({k: params[k] for k in GROUP}):
-        x = checkpoint(group, p_g, x, use_reentrant=False) if remat \
+        x = checkpoint(shd.bound(group), p_g, x, use_reentrant=False) if remat \
             else group(p_g, x)
     for t in range(cfg.n_layers % cfg.attn_every):
-        x, _ = rec_layer(cfg, tree_map(lambda a: a[0], params[f"tail{t}"]),
+        x, _ = rec_layer(cfg, shd.gather_fsdp(
+            tree_map(lambda a: a[0], params[f"tail{t}"])),
                          x)
     return x

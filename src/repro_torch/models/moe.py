@@ -38,17 +38,21 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.core.distributed import dispatch_plan
 from repro_torch.kernels.flash_attention import weak_scalar
 from repro_torch.models.base import Layout, ModelConfig, ParamDef, tree_map
 from repro_torch.models.transformer import (_scan_blocks, attn_apply,
                                             attn_layout, embed_tokens,
-                                            flash_attention, mlp_apply,
-                                            mlp_layout, norm, rope,
-                                            unbind_layers, unembed)
+                                            flash_attention, gold_logits,
+                                            logsumexp, mlp_apply, mlp_layout,
+                                            norm, on_local_heads, rope,
+                                            unbind_layers, unembed,
+                                            write_cache)
 
 # ---------------------------------------------------------------------------
 # MLA (multi-head latent attention)
@@ -96,26 +100,32 @@ def mla_apply(cfg: ModelConfig, p: Dict, x, positions, cache=None):
 
     if cache is not None:
         idx = int(cache["idx"])
-        cache["c_kv"][:, idx:idx + S] = c_kv
-        cache["k_rope"][:, idx:idx + S] = k_rope
+        write_cache(cache["c_kv"], c_kv, idx)
+        write_cache(cache["k_rope"], k_rope, idx)
         c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     kv = (c_kv @ p["wkv_b"]).reshape(B, -1, H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], dr)], -1)
     qq = torch.cat([q_nope, q_rope], -1)
+    qq = shd.constrain(qq, "batch", "seq", "heads", None)
     if cache is None:
-        o = flash_attention(qq, k, v, causal=True)
+        o = on_local_heads(lambda q_, k_, v_: flash_attention(
+            q_, k_, v_, causal=True), qq, k, v, kv_name="heads")
     else:
         T = k.shape[1]
-        qq = qq / weak_scalar(math.sqrt(dn + dr), qq.dtype)
-        s = torch.einsum("bqhd,bkhd->bhqk", qq.float(), k.float())
-        kpos = torch.arange(T, device=x.device)
-        qpos = idx + torch.arange(S, device=x.device)
+        kpos = torch.arange(T, device=shd.local(x).device)
+        qpos = idx + torch.arange(S, device=kpos.device)
         mask = kpos[None, :] <= qpos[:, None]
-        s = torch.where(mask[None, None], s, -1e30)
-        w = torch.softmax(s, dim=-1).to(v.dtype)
-        o = torch.einsum("bhqk,bkhd->bhqd", w.float(), v.float()) \
-            .transpose(1, 2).to(x.dtype)
+
+        def attend(q_, k_, v_):
+            q_ = q_ / weak_scalar(math.sqrt(dn + dr), q_.dtype)
+            s = torch.einsum("bqhd,bkhd->bhqk", q_.float(), k_.float())
+            s = torch.where(mask[None, None], s, -1e30)
+            w = torch.softmax(s, dim=-1).to(v_.dtype)
+            return torch.einsum("bhqk,bkhd->bhqd", w.float(),
+                                v_.float()).transpose(1, 2).to(x.dtype)
+
+        o = on_local_heads(attend, qq, k, v, kv_name="heads")
     return o.reshape(B, S, H * dv) @ p["wo"], (c_kv, k_rope)
 
 
@@ -143,10 +153,13 @@ def experts_layout(cfg: ModelConfig, prefix: str, layers: int) -> Layout:
     return out
 
 
-def _route(cfg: ModelConfig, p: Dict, xf):
+def _route(cfg: ModelConfig, p: Dict, xf, groups=(), n_tokens=None):
     """Router scores → (gate_vals, expert_ids, lb_loss), (N, K) each and a
     float32 scalar.  The top k by a stable descending sort: among equal
-    scores the lower expert id comes first, as from ``jax.lax.top_k``."""
+    scores the lower expert id comes first, as from ``jax.lax.top_k``.
+    With ``groups`` (the batch's blocks split over their ranks), the
+    load-balance means run over all ``n_tokens`` tokens: the sums of the
+    blocks added over the groups."""
     E, K = cfg.n_experts, cfg.top_k
     scores = (xf @ p["router"]).float()                      # (N, E)
     probs = torch.sigmoid(scores) if cfg.family == "mla_moe" \
@@ -156,12 +169,20 @@ def _route(cfg: ModelConfig, p: Dict, xf):
     if cfg.family == "mla_moe":                              # deepseek norm
         gate_vals = gate_vals / torch.clamp_min(
             gate_vals.sum(-1, keepdim=True), 1e-9)
-    me = torch.softmax(scores, dim=-1).mean(dim=0)
     # the mean of the one-hot sums: integer counts (no host sync, unlike
     # bincount on the card) over N
     flat = expert_ids.reshape(-1)
-    ce = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
-        0, flat, torch.ones_like(flat)).float() / xf.shape[0]
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+    if groups:
+        me = shd.psum_to_all(torch.softmax(scores, dim=-1).sum(dim=0),
+                             groups) / n_tokens
+        for g in groups:
+            counts = shd.group_psum(counts, g)
+        ce = counts.float() / n_tokens
+    else:
+        me = torch.softmax(scores, dim=-1).mean(dim=0)
+        ce = counts.float() / xf.shape[0]
     lb_loss = E * torch.sum(me * ce) / K
     return gate_vals, expert_ids, lb_loss
 
@@ -205,6 +226,8 @@ def moe_apply(cfg: ModelConfig, p: Dict, x, capacity_factor=None):
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``),
     by which a profile splits the layer's device time.
     """
+    if isinstance(x, DTensor):
+        return _one_rank(moe_apply, cfg, p, x, capacity_factor)
     B, S, d = x.shape
     K, Ep = cfg.top_k, cfg.experts_padded
     N = B * S
@@ -239,6 +262,23 @@ def moe_apply(cfg: ModelConfig, p: Dict, x, capacity_factor=None):
     if cfg.n_shared_experts:
         out = out + mlp_apply(cfg, p["shared"], x)
     return out, lb_loss
+
+
+def _one_rank(fn, cfg, p, x, capacity_factor):
+    """``fn`` on DTensors of a one-rank mesh (whose blocks are the whole
+    tensors).  Across several ranks the experts need the rules' experts
+    axis in the mesh (``moe_apply_shardmap``): the capacity-bounded
+    dispatch has no DTensor rule, and gathering the batch is refused."""
+    mesh = x.device_mesh
+    if mesh.size() > 1:
+        raise ValueError(f"moe_apply over a mesh of {mesh.size()} ranks "
+                         f"without an axis for the experts (mesh axes "
+                         f"{tuple(mesh.mesh_dim_names)}): give the mesh the "
+                         f"rules' experts axis")
+    rep = (Replicate(),) * mesh.ndim
+    y, lb = fn(cfg, tree_map(shd.local, p), x.to_local(), capacity_factor)
+    return (DTensor.from_local(y, mesh, rep, run_check=False),
+            DTensor.from_local(lb, mesh, rep, run_check=False))
 
 
 def combine(y, rows, expert_ids, gate_vals):
@@ -285,90 +325,102 @@ class _TakeRows(torch.autograd.Function):
         return out.index_copy_(0, idx, grad), None
 
 
-def _requires_grad(tree) -> bool:
-    if isinstance(tree, (list, tuple)):
-        return any(_requires_grad(t) for t in tree)
-    if isinstance(tree, dict):
-        return _requires_grad(list(tree.values()))
-    return isinstance(tree, torch.Tensor) and tree.requires_grad
-
-
 def moe_apply_shardmap(cfg: ModelConfig, p: Dict, x, capacity_factor=None):
     """Expert-parallel dispatch over the mesh in scope (``sharding``): the
-    reference's ``shard_map`` body, run by every rank on its own block.
+    reference's ``shard_map`` body, run by every rank on its own block,
+    with a gradient.
 
-    Every rank holds the same ``x`` and parameters (the reference's
-    replicated activations).  A rank keeps the tokens of its batch block
-    (the ``batch`` rule's axes) and the ``E_local = Ep / model`` experts
-    of its model-axis index, filters the token copies routed to them
-    (PI: a NUMA node answers only its key range), places them in its
-    capacity buffer by ``dispatch_plan``, runs the three expert products,
-    and a ``psum`` over the model axis's group combines each token's
-    contributions.  The batch blocks are then gathered, so that every
-    rank returns the whole (B, S, d) output.  Without a mesh, or with no
-    axis for the experts, it is ``moe_apply``, as in the reference.  A
-    forward path: its collectives carry no gradient, so with autograd
-    recording on a mesh of several ranks it raises ``NotImplementedError``
-    (training over a mesh is ROADMAP A13).
+    ``x`` (B, S, d) is a DTensor whose batch the rules split (tokens
+    ``P(bspec)`` in and out); the expert weights are redistributed to
+    ``P(model_ax)``: a rank holds the ``E_local = Ep / model`` experts of
+    its model-axis index.  Each rank routes its block's tokens (the
+    load-balance means summed over the batch's ranks), filters the copies
+    routed to its experts (PI: a NUMA node answers only its key range),
+    places them in its capacity buffer by ``dispatch_plan``, runs the
+    three expert products, and a ``psum`` over the model axis combines
+    each token's contributions.  The gradients take JAX's transposes: the
+    psum's passes through; the tokens and gates, which every model rank
+    holds alike and uses for its own experts, get the sum of the ranks'
+    (``sharding.sum_grads``); an expert block's is summed over the batch.
+    Plain ``x`` and ``p`` (every rank the same: the reference's replicated
+    activations) run as replicated DTensors and come back whole.  Without
+    a mesh, or with no axis for the experts, it is ``moe_apply``, as in
+    the reference.
     """
-    from repro_torch import sharding as shd
-
     mesh = shd.current_mesh()
     model_axes = shd.physical_axes("experts", cfg.experts_padded)
     if mesh is None or not model_axes:
         return moe_apply(cfg, p, x, capacity_factor)
-    if mesh.size() > 1 and torch.is_grad_enabled() and \
-            _requires_grad([x, p]):
-        raise NotImplementedError(
-            "moe_apply_shardmap's collectives carry no gradient across "
-            "ranks: its backward over a mesh is ROADMAP A13, the LM across "
-            "cards")
-    model_ax = model_axes[0]
+    if not isinstance(x, DTensor):
+        rep = (Replicate(),) * mesh.ndim
+        y, lb = moe_apply_shardmap(
+            cfg, tree_map(lambda t: DTensor.from_local(
+                t, mesh, rep, run_check=False), p),
+            DTensor.from_local(x, mesh, rep, run_check=False),
+            capacity_factor)
+        return y.full_tensor(), lb.full_tensor()
+    names = tuple(mesh.mesh_dim_names)
+    m_dim = names.index(model_axes[0])
     B, S, d = x.shape
     K, Ep = cfg.top_k, cfg.experts_padded
-    N = B * S
-    xf = x.reshape(N, d)
-    gate_vals, expert_ids, lb_loss = _route(cfg, p, xf)
+    x = shd.constrain(x, "batch", "seq", "embed")
+    bdims = shd.mesh_dims_of(x, 0)
+    xpl = tuple(Shard(0) if m in bdims else Replicate()
+                for m in range(mesh.ndim))
+    if tuple(x.placements) != xpl:
+        x = x.redistribute(mesh, xpl)
+    bgroups = shd.mesh_groups(mesh, bdims)
+    mgroups = shd.mesh_groups(mesh, (m_dim,))
+    # a rank's grads: its batch block's part of a replicated leaf's
+    bsum = tuple(Partial() if m in bdims else Replicate()
+                 for m in range(mesh.ndim))
 
-    sizes = shd.mesh_sizes(mesh)
-    batch_axes = shd.physical_axes("batch", N)
-    n_b, b_idx = 1, 0
-    for a in batch_axes:             # row-major over the batch axes
-        n_b *= sizes[a]
-        b_idx = b_idx * sizes[a] + shd.axis_index(a)
-    N_loc = N // n_b
-    E_local = Ep // sizes[model_ax]
+    x_l = x.to_local()
+    N_loc = x_l.shape[0] * S
+    xf_l = x_l.reshape(N_loc, d)
+    router = p["router"].redistribute(mesh, (Replicate(),) * mesh.ndim)
+    gate_vals, expert_ids, lb_loss = _route(
+        cfg, {"router": router.to_local(grad_placements=bsum)}, xf_l,
+        groups=bgroups, n_tokens=B * S)
+
+    E_local = Ep // mesh.size(m_dim)
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity
     cap = int(math.ceil(N_loc * K / Ep * cf))
     cap = max(8, min(cap, N_loc))
+    wpl = tuple(Shard(0) if m == m_dim else Replicate()
+                for m in range(mesh.ndim))
+    wgrad = tuple(Shard(0) if m == m_dim else b for m, b in enumerate(bsum))
+    wg, wu, wd = (p[k].redistribute(mesh, wpl).to_local(grad_placements=wgrad)
+                  for k in ("w_gate", "w_up", "w_down"))
+    lo = mesh.get_local_rank(m_dim) * E_local
 
-    rows = slice(b_idx * N_loc, (b_idx + 1) * N_loc)
-    xf_l = xf[rows]
-    gv_l = gate_vals.to(x.dtype)[rows]
-    lo = shd.axis_index(model_ax) * E_local
-    dest = expert_ids[rows].reshape(-1).to(torch.int32) - lo
+    # tokens and gates are the same on every model rank, each using them
+    # for its own experts
+    xf_d = shd.sum_grads(xf_l, mgroups)
+    gv_l = shd.sum_grads(gate_vals.to(x_l.dtype), mgroups)
+    dest = expert_ids.reshape(-1).to(torch.int32) - lo
     valid = (dest >= 0) & (dest < E_local)
     dest_c = torch.where(valid, dest, E_local)          # overflow bucket
     order, slot, keep, _ = dispatch_plan(dest_c, E_local + 1, cap)
     olong = order.long()
     live = keep & valid[olong]
     slot = torch.where(live, slot, E_local * cap)       # bucket rows drop
-    tok_of = (torch.arange(N_loc * K, device=x.device) // K)[olong]
+    tok_of = (torch.arange(N_loc * K, device=x_l.device) // K)[olong]
     # every live copy has its own row; the rest land on the spare row
-    xbuf = xf_l.new_zeros((E_local * cap + 1, d)).index_copy(
-        0, slot.long(), xf_l[tok_of])[:-1].view(E_local, cap, d)
-    experts = slice(lo, lo + E_local)
-    h = torch.bmm(xbuf, p["w_gate"][experts])
-    u = torch.bmm(xbuf, p["w_up"][experts])
+    xbuf = xf_d.new_zeros((E_local * cap + 1, d)).index_copy(
+        0, slot.long(), xf_d[tok_of])[:-1].view(E_local, cap, d)
+    h = torch.bmm(xbuf, wg)
+    u = torch.bmm(xbuf, wu)
     h = F.silu(h) * u
-    y = torch.bmm(h, p["w_down"][experts]).reshape(E_local * cap, d)
-    g = torch.where(live, gv_l.reshape(-1)[olong], 0).to(x.dtype)
+    y = torch.bmm(h, wd).reshape(E_local * cap, d)
+    g = torch.where(live, gv_l.reshape(-1)[olong], 0).to(x_l.dtype)
     contrib = y[torch.where(live, slot, 0).long()] * g[:, None]
-    out = xf_l.new_zeros((N_loc, d)).index_add_(0, tok_of, contrib)
-    out = shd.psum(out, model_ax)
-    for a in reversed(batch_axes):   # the blocks, innermost axis first
-        out = shd.all_gather(out, a).flatten(0, 1)
-    out = out.reshape(B, S, d)
+    out = xf_d.new_zeros((N_loc, d)).index_add_(0, tok_of, contrib)
+    out = shd.psum_to_all(out, mgroups)
+    out = DTensor.from_local(out.reshape(x_l.shape), mesh, xpl,
+                             run_check=False)
+    lb_loss = DTensor.from_local(lb_loss, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
     if cfg.n_shared_experts:
         out = out + mlp_apply(cfg, p["shared"], x)
     return out, lb_loss
@@ -413,7 +465,7 @@ def dense_layer(cfg, p, x, positions, cache=None):
     h, kv = _attn(cfg, p["attn"], norm(cfg, x, p["ln1"]), positions, cache)
     x = x + h
     x = x + mlp_apply(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
-    return x, kv
+    return shd.constrain(x, "batch", "seq", "embed"), kv
 
 
 def moe_layer(cfg, p, x, positions, cache=None):
@@ -421,7 +473,7 @@ def moe_layer(cfg, p, x, positions, cache=None):
     x = x + h
     fn = moe_apply if cfg.moe_impl == "gspmd" else moe_apply_shardmap
     y, lb = fn(cfg, p["experts"], norm(cfg, x, p["ln2"]))
-    return x + y, (kv, lb)
+    return shd.constrain(x + y, "batch", "seq", "embed"), (kv, lb)
 
 
 def forward_blocks(cfg: ModelConfig, params, x, positions):
@@ -435,12 +487,13 @@ def forward_blocks(cfg: ModelConfig, params, x, positions):
     remat = cfg.remat and torch.is_grad_enabled()
 
     def layer(p_l, h):
-        h, (_, lb_l) = moe_layer(cfg, p_l, h, positions)
+        h, (_, lb_l) = moe_layer(cfg, shd.gather_fsdp(p_l), h, positions)
         return h, lb_l
 
-    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    lb = shd.replicated(torch.zeros((), dtype=torch.float32,
+                                    device=x.device), x)
     for p_l in unbind_layers(params["moe"]):
-        x, lb_l = checkpoint(layer, p_l, x, use_reentrant=False) if remat \
+        x, lb_l = checkpoint(shd.bound(layer), p_l, x, use_reentrant=False) if remat \
             else layer(p_l, x)
         lb = lb + lb_l
     n_moe = cfg.n_layers - cfg.first_k_dense
@@ -486,8 +539,9 @@ def mtp_loss(cfg: ModelConfig, params, batch, h_final):
     lf = logits.float()
     # labels for t+2 == labels shifted by one more step
     lbl = torch.roll(labels, -1, dims=1)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, lbl[..., None].long())[..., 0]
-    mask = torch.ones_like(gold)
-    mask[:, -2:] = 0.0
+    logz = logsumexp(lf)
+    gold = gold_logits(lf, lbl)
+    # the last two positions have no label two ahead
+    mask = shd.replicated((torch.arange(S, device=shd.local(lf).device)
+                           < S - 2).to(gold.dtype).expand(B, S), gold)
     return ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -16,7 +16,8 @@ Pallas kernel is reached there, and this module launches no kernel of
 its own.  Each phase of ``block_apply`` runs in a
 ``torch.profiler.record_function`` span (``ssm.in_proj``, ``ssm.conv``,
 ``ssm.intra``, ``ssm.inter``, ``ssm.out_proj``) by which a profile splits
-a block's device time.
+a block's device time.  Across ranks ``ssd_chunked`` runs on each rank's
+batch block (``sharding.local_call``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.models.base import Layout, ModelConfig, ParamDef
 from repro_torch.models.transformer import (norm, rmsnorm, silu, softplus,
                                             unbind_layers)
@@ -191,7 +193,12 @@ def block_apply(cfg: ModelConfig, p: Dict, x, cache=None):
             Bm = F.pad(Bm, (0, 0, 0, pad))
             Cm = F.pad(Cm, (0, 0, 0, pad))
             dt_p = F.pad(dt, (0, 0, 0, pad))
-        y, final_state = ssd_chunked(xs_p, dt_p, A, Bm, Cm, cfg.ssm_chunk)
+        bsn = ("batch", None, None)
+        y, final_state = shd.local_call(
+            lambda *a: ssd_chunked(*a, cfg.ssm_chunk),
+            (xs_p, dt_p, A, Bm, Cm),
+            (bsn + (None,), bsn, (None,), bsn, bsn),
+            (bsn + (None,), bsn + (None,)))
         y = y[:, :S] + p["D"][None, None, :, None] * xs
         new_cache = (final_state, conv_tail)
     else:
@@ -217,7 +224,7 @@ def block_apply(cfg: ModelConfig, p: Dict, x, cache=None):
         y = y.reshape(B_, S, din).to(res.dtype)  # SSD runs f32; back to x's
         y = rmsnorm(y * silu(z), p["gate_norm"])
         out = y @ p["out_proj"]
-    return res + out, new_cache
+    return res + shd.constrain(out, "batch", "seq", "embed"), new_cache
 
 
 def forward_blocks(cfg: ModelConfig, params, x):
@@ -227,9 +234,9 @@ def forward_blocks(cfg: ModelConfig, params, x):
     remat = cfg.remat and torch.is_grad_enabled()
 
     def block(p_l, h):
-        return block_apply(cfg, p_l, h)[0]
+        return block_apply(cfg, shd.gather_fsdp(p_l), h)[0]
 
     for p_l in unbind_layers(params):
-        x = checkpoint(block, p_l, x, use_reentrant=False) if remat \
+        x = checkpoint(shd.bound(block), p_l, x, use_reentrant=False) if remat \
             else block(p_l, x)
     return x

@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.steps``.  The JAX package lowers these for
 the dry-run and executes them in its training and serving loops; here
 they run eagerly, on the parameter tree itself (nested dicts of tensors,
-``models.base``), not on ``DenseLM``.
+``models.base``), not on ``DenseLM``.  Across ranks the same steps take
+DTensors (``train_state_shardings``, ``place_batch``) under
+``sharding.use_mesh``.
 
 A train step differentiates ``loss_fn`` with ``torch.autograd.grad`` on
 tensors that share the parameters' storage (``loss_and_grad``), then
@@ -11,7 +13,7 @@ takes the optimizer step, which writes the new parameters and moments
 into the tensors it was given (``optim``): the returned state is the
 state passed in, updated.  The abstract state and the input specs are
 tensors on the ``meta`` device beside the JAX package's logical-axis
-tuples, which nothing maps onto devices on one card.
+tuples, which ``sharding.tree_shardings`` maps onto a mesh.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import optim
+from repro_torch import sharding as shd
 from repro_torch.models import decode as dec
+from repro_torch.models.decode import cache_logical_axes
 from repro_torch.models.base import (ModelConfig, abstract_params,
                                      init_params, spec_tree, torch_dtype,
                                      tree_leaves, tree_map)
@@ -71,14 +75,11 @@ def input_specs(cfg: ModelConfig, shape: str):
     if s.kind in ("train", "prefill"):
         if cfg.input_mode == "embeddings":
             batch = {"embeds": _meta((B, S, cfg.d_model), cdt)}
-            logical = {"embeds": ("batch", "seq", "embed")}
         else:
             batch = {"tokens": _meta((B, S), i32)}
-            logical = {"tokens": ("batch", "seq")}
         if s.kind == "train":
             batch["labels"] = _meta((B, S), i32)
-            logical["labels"] = ("batch", "seq")
-        return batch, logical
+        return batch, {k: BATCH_AXES[k] for k in batch}
     # decode: one new token + a cache of seq_len
     if cfg.input_mode == "embeddings":
         tok = _meta((B, 1, cfg.d_model), cdt)
@@ -93,26 +94,18 @@ def input_specs(cfg: ModelConfig, shape: str):
     return batch, logical
 
 
-# the logical axes of a cache leaf, by its key
-_CACHE_AXES = {
-    "k": ("layers", "batch", "kv_seq", "kv_heads", None),      # (L,B,T,KV,hd)
-    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
-    "c_kv": ("layers", "batch", "kv_seq", None),               # (L,B,T,r)
-    "k_rope": ("layers", "batch", "kv_seq", None, None),       # (L,B,T,1,dr)
-    "pos": ("layers", None),
-    "ssm": ("layers", "batch", "heads", None, None),           # (L,B,H,P,N)
-    "conv": ("layers", "batch", None, "mlp"),                  # (L,B,K-1,C)
-    "h": ("layers", "batch", "mlp"),                           # (L,B,w)
-}
+# the logical axes of a batch leaf (train and prefill), by its key
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "mask": ("batch", "seq"),
+              "embeds": ("batch", "seq", "embed")}
 
 
-def cache_logical_axes(cfg: ModelConfig, cache):
-    """KV caches shard over batch (+ kv_heads); states over batch."""
-    def axes(node, name):
-        if isinstance(node, dict):
-            return {k: axes(v, k) for k, v in node.items()}
-        return _CACHE_AXES.get(name, (None,) * node.dim())
-    return axes(cache, None)
+def place_batch(batch, mesh, rules=shd.DEFAULT_RULES):
+    """A train or prefill batch (every rank holds the same one: data are
+    a function of (seed, step)) as DTensors by ``BATCH_AXES``."""
+    return {k: shd.place_tensor(x, mesh, shd.placements_of(
+        BATCH_AXES[k], tuple(x.shape), mesh, rules))
+        for k, x in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -143,13 +136,46 @@ def _opt_specs(opt_cfg, pspecs, opt_state):
     return {"m": pspecs, "v": pspecs, "count": ()}
 
 
+def train_state_shardings(cfg: ModelConfig, opt_cfg: optim.OptConfig,
+                          mesh, rules=shd.DEFAULT_RULES):
+    """``{"params": ..., "opt": ...}``: the ``(mesh, placements)`` of every
+    leaf of the train state (the reference's ``tree_shardings`` of
+    ``abstract_train_state``'s specs)."""
+    params, pspecs, opt_state, ospecs = abstract_train_state(cfg, opt_cfg)
+    return {"params": shd.tree_shardings(pspecs, mesh, rules,
+                                         shape_tree=params),
+            "opt": shd.tree_shardings(ospecs, mesh, rules,
+                                      shape_tree=opt_state)}
+
+
 def init_train_state(cfg: ModelConfig, opt_cfg: optim.OptConfig,
-                     generator: torch.Generator, device=None):
+                     generator: torch.Generator, device=None,
+                     shardings=None):
     """(params, optimizer state) on ``device`` (default: the card), the
-    parameters drawn on the CPU ``generator`` (``init_params``)."""
+    parameters drawn on the CPU ``generator`` (``init_params``).  With
+    ``shardings`` (``train_state_shardings``) every leaf is a DTensor:
+    the parameters the same numbers, each rank's block kept; the
+    optimizer's zeros made as blocks."""
+    if shardings is None:
+        params = init_params(model_layout(cfg), generator, cfg.param_dtype,
+                             device)
+        return params, optim.init(opt_cfg, params)
     params = init_params(model_layout(cfg), generator, cfg.param_dtype,
-                         device)
-    return params, optim.init(opt_cfg, params)
+                         shardings=shardings["params"])
+    return params, init_opt_state(cfg, opt_cfg, shardings)
+
+
+def init_opt_state(cfg: ModelConfig, opt_cfg: optim.OptConfig, shardings):
+    """``optim.init``'s state as DTensors placed by ``shardings["opt"]``,
+    each rank's block of zeros made where it lives."""
+    abstract = optim.init(opt_cfg, abstract_params(model_layout(cfg),
+                                                   cfg.param_dtype))
+
+    def zeros(a, sh):
+        if isinstance(a, dict):
+            return {k: zeros(v, sh[k]) for k, v in a.items()}
+        return shd.zeros(tuple(a.shape), a.dtype, *sh)
+    return zeros(abstract, shardings["opt"])
 
 
 # ---------------------------------------------------------------------------
@@ -161,16 +187,41 @@ def loss_and_grad(cfg: ModelConfig, params, batch):
     to every leaf of ``params`` (the JAX package's
     ``jax.value_and_grad(loss_fn, argnums=1, has_aux=True)``), taken on
     detached tensors that share the leaves' storage."""
+    one = shd.one_rank_mesh(params)
+    if one is not None:
+        # a one-rank mesh: the one-card program on the whole blocks, bit
+        # for bit (wrapping them would only reorder gradient sums)
+        (loss, metrics), grads = loss_and_grad(
+            cfg, tree_map(shd.local, params), tree_map(shd.local, batch))
+        flat = iter(tree_leaves(grads))
+        return (loss, metrics), tree_map(lambda p: shd.like(next(flat), p),
+                                         params)
     live = tree_map(lambda a: a.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, live, batch)
+        # across ranks: a loss every rank holds whole, differentiated
+        # once (a partial sum's gradient would count each rank's)
+        loss = shd.replicate(loss)
         # a leaf the loss does not read (embed/tok in the embeddings
         # mode) gets zeros, as from JAX
         grads = iter(torch.autograd.grad(loss, tree_leaves(live),
                                          materialize_grads=True))
-    grads = tree_map(lambda _: next(grads), live)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
-        grads
+    # each gradient placed as its parameter: the data-parallel reduction
+    # of the partial sums
+    grads = tree_map(lambda p: shd.placed_like(next(grads), p), live)
+    return (loss.detach(), {k: shd.replicate(v.detach())
+                            for k, v in metrics.items()}), grads
+
+
+def _rows(x, i: int, n: int, key: str):
+    """Rows [i n, (i + 1) n) of a batch leaf: a DTensor's gathered and
+    placed again by its logical axes (a micro-batch shards like the
+    batch)."""
+    if not shd.is_dtensor(x):
+        return x[i * n:(i + 1) * n]
+    rows = shd.full(x)[i * n:(i + 1) * n]
+    return shd.place_tensor(rows, x.device_mesh, shd.placements_of(
+        BATCH_AXES[key], tuple(rows.shape), x.device_mesh))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
@@ -183,7 +234,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
             n = next(iter(batch.values())).shape[0] // grad_accum
             grads = loss = None
             for i in range(grad_accum):
-                mb = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+                mb = {k: _rows(x, i, n, k) for k, x in batch.items()}
                 (l, _), g = loss_and_grad(cfg, params, mb)
                 if grads is None:
                     grads, loss = g, l

@@ -33,7 +33,12 @@ a Python scalar that JAX would weakly type to the array's dtype is
 rounded to that dtype here too; products that JAX asks for in float32
 (``preferred_element_type``) are taken in float32, which relies on
 ``torch.backends.cuda.matmul.allow_tf32`` being off (PyTorch's default).
-Sharding constraints have no counterpart on one card.
+
+Across ranks (``sharding.use_mesh`` with the parameters and inputs
+placed as DTensors, ``sharding.place``) the same functions run on
+DTensors, with the reference's ``constrain`` calls at the same points.
+The attention runs on each rank's own heads (``on_local_heads``): the
+flash kernel, its backward and the decode attention see local tensors.
 """
 from __future__ import annotations
 
@@ -46,6 +51,9 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch import sharding as shd
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_fwd_plain,
                                                  weak_scalar)
@@ -67,6 +75,8 @@ def _check_ported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps=1e-6):
+    if isinstance(x, DTensor):
+        return shd.rowwise(lambda a, b: rmsnorm(a, b, eps), x, scale)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -74,6 +84,8 @@ def rmsnorm(x, scale, eps=1e-6):
 
 
 def layernorm(x, scale, eps=1e-5):
+    if isinstance(x, DTensor):
+        return shd.rowwise(lambda a, b: layernorm(a, b, eps), x, scale)
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, correction=0)  # jnp.var: population
@@ -87,6 +99,9 @@ def norm(cfg: ModelConfig, x, scale):
 
 def rope(x, positions, theta: float):
     """Rotary embedding. x: (..., S, H, D), positions: (..., S)."""
+    if isinstance(x, DTensor):
+        return shd.rowwise(lambda a, pos: rope(a, pos, theta), x,
+                           rows=(shd.full(positions),))
     d = x.shape[-1]
     half = d // 2
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -139,6 +154,55 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
                                      kv_chunk=kv_chunk)
 
 
+def on_local_heads(fn, q, k, v, kv_name: str = "kv_heads"):
+    """``fn(q, k, v)`` → (B, Sq, H, Dv), on each rank's own heads when
+    ``q`` is a DTensor.
+
+    q is placed by ("batch", -, "heads", -) and k, v by ("batch", -,
+    ``kv_name``, -), the sequence whole; ``fn`` takes the local blocks.
+    Where the rules shard q's heads but replicate k and v (KV heads that
+    the axis does not divide: MQA), each local query head gets its own KV
+    head, and the gradients of k and v are partial sums over that axis.
+    Plain tensors go to ``fn`` as they are."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    qp = shd.placements_of(("batch", None, "heads", None), q.shape, mesh)
+    kp = shd.placements_of(("batch", None, kv_name, None), k.shape, mesh)
+    q, k, v = (t if tuple(t.placements) == p else t.redistribute(mesh, p)
+               for t, p in ((q, qp), (k, kp), (v, kp)))
+    # k, v replicated where q's heads are split: each rank's gradient is
+    # its own heads' part
+    gp = tuple(Partial() if isinstance(a, Shard) and a.dim == 2 and
+               not isinstance(b, Shard) else b for a, b in zip(qp, kp))
+    q_l = q.to_local()
+    k_l, v_l = (t.to_local(grad_placements=gp) for t in (k, v))
+    H, KV, H_l = q.shape[2], k.shape[2], q_l.shape[2]
+    if H_l < H and k_l.shape[2] == KV:
+        rep = H // KV
+        off = shd.block_offset(q, 2)
+        if H_l % rep == 0:          # whole groups of query heads
+            k_l, v_l = (t[:, :, off // rep:(off + H_l) // rep]
+                        for t in (k_l, v_l))
+        elif rep % H_l == 0:        # every local head in one group
+            k_l, v_l = (t[:, :, off // rep:off // rep + 1]
+                        for t in (k_l, v_l))
+        else:
+            idx = torch.div(off + torch.arange(H_l, device=k_l.device),
+                            rep, rounding_mode="floor")
+            k_l, v_l = (t.index_select(2, idx) for t in (k_l, v_l))
+    o = fn(q_l, k_l, v_l)
+    return DTensor.from_local(o, mesh, qp, run_check=False)
+
+
+def write_cache(dst, t, start: int):
+    """``dst[:, start:start + S] = t`` in place: a placed cache's local
+    block takes ``t`` redistributed to its placements."""
+    if isinstance(dst, DTensor) and isinstance(t, DTensor):
+        t = t.redistribute(dst.device_mesh, dst.placements)
+    shd.local(dst)[:, start:start + t.shape[1]] = shd.local(t)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
@@ -166,9 +230,10 @@ def attn_apply(cfg: ModelConfig, p: Dict, x, positions, *,
     S == 1 written at ``slot``).
 
     The decode branch writes the new key, value and position into the
-    cache tensors in place, where the JAX package returns new arrays
-    (``dynamic_update_slice``); nothing on the serving path reads the old
-    cache, and the tensors it returns are the same ones it was given.
+    cache tensors in place (their local blocks, for a placed cache), where
+    the JAX package returns new arrays (``dynamic_update_slice``); nothing
+    on the serving path reads the old cache, and the tensors it returns
+    are the same ones it was given.
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
@@ -181,30 +246,38 @@ def attn_apply(cfg: ModelConfig, p: Dict, x, positions, *,
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = shd.constrain(q, "batch", "seq", "heads", None)
+    k = shd.constrain(k, "batch", "seq", "kv_heads", None)
     if cache is None:
-        o = FlashAttention.apply(q, k, v, True, window, cfg.logit_softcap)
+        o = on_local_heads(lambda q_, k_, v_: FlashAttention.apply(
+            q_, k_, v_, True, window, cfg.logit_softcap), q, k, v)
         new_cache = (k, v)
     else:
         ck, cv, cpos, slot = cache["k"], cache["v"], cache["pos"], \
             cache["slot"]
-        ck[:, slot:slot + S] = k
-        cv[:, slot:slot + S] = v
-        cpos[slot:slot + S] = positions[0].to(torch.int32)
-        rep = H // KV
-        kk = ck.repeat_interleave(rep, dim=2) if rep > 1 else ck
-        vv = cv.repeat_interleave(rep, dim=2) if rep > 1 else cv
-        q = q / weak_scalar(math.sqrt(hd), q.dtype)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
-        if cfg.logit_softcap:
-            s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+        write_cache(ck, k, slot)
+        write_cache(cv, v, slot)
+        shd.local(cpos)[slot:slot + S] = positions[0].to(torch.int32)
+        cpos_l = shd.local(cpos)
         qpos = positions[0]                                # (S,) S==1
-        mask = (cpos[None, :] >= 0) & (cpos[None, :] <= qpos[:, None])
+        mask = (cpos_l[None, :] >= 0) & (cpos_l[None, :] <= qpos[:, None])
         if window is not None:
-            mask = mask & (cpos[None, :] > qpos[:, None] - window)
-        s = torch.where(mask[None, None], s, -1e30)
-        w = torch.softmax(s, dim=-1).to(vv.dtype)
-        o = torch.einsum("bhqk,bkhd->bhqd", w.float(), vv.float()) \
-            .transpose(1, 2).to(x.dtype)
+            mask = mask & (cpos_l[None, :] > qpos[:, None] - window)
+
+        def attend(q_, ck_, cv_):
+            rep = q_.shape[2] // ck_.shape[2]
+            kk = ck_.repeat_interleave(rep, dim=2) if rep > 1 else ck_
+            vv = cv_.repeat_interleave(rep, dim=2) if rep > 1 else cv_
+            q_ = q_ / weak_scalar(math.sqrt(hd), q_.dtype)
+            s = torch.einsum("bqhd,bkhd->bhqk", q_.float(), kk.float())
+            if cfg.logit_softcap:
+                s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+            s = torch.where(mask[None, None], s, -1e30)
+            w = torch.softmax(s, dim=-1).to(vv.dtype)
+            return torch.einsum("bhqk,bkhd->bhqd", w.float(), vv.float()) \
+                .transpose(1, 2).to(x.dtype)
+
+        o = on_local_heads(attend, q, ck, cv)
         new_cache = (ck, cv, cpos)
     o = o.reshape(B, S, H * hd)
     return o @ p["wo"], new_cache
@@ -233,6 +306,7 @@ def mlp_apply(cfg: ModelConfig, p: Dict, x):
         h = act_fn(cfg, x @ p["w_gate"], up)
     else:
         h = act_fn(cfg, up, up)
+    h = shd.constrain(h, "batch", "seq", "mlp")
     return h @ p["w_down"]
 
 
@@ -254,6 +328,7 @@ def dense_block_apply(cfg: ModelConfig, p: Dict, x, positions, cache=None):
                        cache=cache, window=cfg.sliding_window)
     x = x + h
     x = x + mlp_apply(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
+    x = shd.constrain(x, "batch", "seq", "embed")
     return x, kv
 
 
@@ -290,10 +365,44 @@ def model_layout(cfg: ModelConfig) -> Layout:
     return out
 
 
+def lookup(table, tokens):
+    """``table[tokens]``: (..., d) rows.  Over a vocab-sharded DTensor
+    table each rank takes the tokens in its block of the vocab (0
+    elsewhere) and the rows are summed over the ranks that split the
+    vocab (one term is not 0: exact), so the table's gradient stays on
+    its blocks."""
+    if not isinstance(table, DTensor):
+        return table.index_select(0, tokens.reshape(-1).long()) \
+            .reshape(*tokens.shape, table.shape[-1])
+    mesh = table.device_mesh
+    vdims = shd.mesh_dims_of(table, 0)
+    tpl = tuple(Shard(0) if m in vdims else Replicate()
+                for m in range(mesh.ndim))
+    if tuple(table.placements) != tpl:
+        table = table.redistribute(mesh, tpl)
+    if not isinstance(tokens, DTensor):      # every rank's the same
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    rows = tuple(Replicate() if m in vdims or not p.is_shard() else p
+                 for m, p in enumerate(tokens.placements))
+    if tuple(tokens.placements) != rows:
+        tokens = tokens.redistribute(mesh, rows)
+    gp = tuple(Shard(0) if m in vdims else
+               Partial() if rows[m].is_shard() else Replicate()
+               for m in range(mesh.ndim))
+    tbl, tok = table.to_local(grad_placements=gp), tokens.to_local().long()
+    off, n = shd.block_offset(table, 0), tbl.shape[0]
+    mine = (tok >= off) & (tok < off + n)
+    emb = tbl.index_select(0, (tok - off).clamp(0, n - 1).reshape(-1)) \
+        .reshape(*tok.shape, tbl.shape[-1])
+    emb = torch.where(mine[..., None], emb, 0.0)
+    emb = shd.psum_to_all(emb, shd.mesh_groups(mesh, vdims))
+    return DTensor.from_local(emb, mesh, rows, run_check=False)
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
     table = params["embed"]["tok"]
-    emb = table.index_select(0, tokens.reshape(-1).long()) \
-        .reshape(*tokens.shape, table.shape[-1])
+    emb = lookup(table, tokens)
     if cfg.embed_scale:
         emb = emb * weak_scalar(math.sqrt(cfg.d_model), emb.dtype)
     return emb.to(torch_dtype(cfg.compute_dtype))
@@ -316,7 +425,8 @@ def add_positions(cfg: ModelConfig, x, positions):
     """Additive position signal for archs without RoPE."""
     if cfg.use_rope or cfg.family in ("ssm",):
         return x
-    return x + sinusoidal_pos(positions, cfg.d_model, x.dtype)
+    return x + shd.replicated(sinusoidal_pos(positions, cfg.d_model,
+                                             x.dtype), x)
 
 
 def unembed(cfg: ModelConfig, params, x):
@@ -326,9 +436,10 @@ def unembed(cfg: ModelConfig, params, x):
     if cfg.vocab_padded != cfg.vocab:
         # padding slots never win: mask to -1e30 in the logits' dtype
         pad = torch.arange(cfg.vocab_padded, device=logits.device)
-        logits = logits + torch.where(pad < cfg.vocab, 0.0, -1e30) \
-            .to(logits.dtype)
-    return logits
+        logits = logits + shd.replicated(
+            torch.where(pad < cfg.vocab, 0.0, -1e30).to(logits.dtype),
+            logits)
+    return shd.constrain(logits, "batch", "seq", "vocab")
 
 
 def unbind_layers(block_params):
@@ -350,10 +461,10 @@ def _scan_blocks(cfg: ModelConfig, block_params, x, positions, apply_fn):
     remat = cfg.remat and torch.is_grad_enabled()
 
     def layer(p_l, h):
-        return apply_fn(cfg, p_l, h, positions)[0]
+        return apply_fn(cfg, shd.gather_fsdp(p_l), h, positions)[0]
 
     for p_l in unbind_layers(block_params):
-        x = checkpoint(layer, p_l, x, use_reentrant=False) if remat \
+        x = checkpoint(shd.bound(layer), p_l, x, use_reentrant=False) if remat \
             else layer(p_l, x)
     return x
 
@@ -375,7 +486,8 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None):
     from repro_torch.models import griffin, moe, ssm
 
     params = cast_floats(params, cfg.compute_dtype)
-    x = _inputs(cfg, params, tokens, embeds)
+    x = shd.constrain(_inputs(cfg, params, tokens, embeds),
+                      "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = add_positions(cfg, x, positions)
@@ -393,6 +505,54 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None):
     return unembed(cfg, params, x), aux
 
 
+def gold_logits(lf, labels):
+    """``lf[..., labels]``: each position's logit of its label.  Over
+    vocab-sharded DTensor logits each rank takes the labels in its block
+    of the vocab (0 elsewhere) and the blocks are summed over the ranks
+    that split the vocab: one term is not 0, so the sum is exact."""
+    if not isinstance(lf, DTensor):
+        return lf.gather(-1, labels[..., None].long())[..., 0]
+    mesh = lf.device_mesh
+    vdims = shd.mesh_dims_of(lf, lf.dim() - 1)
+    rows = tuple(Replicate() if m in vdims else p
+                 for m, p in enumerate(lf.placements))
+    if not isinstance(labels, DTensor):
+        labels = shd.place_tensor(labels, mesh, rows)
+    elif tuple(labels.placements) != rows:
+        labels = labels.redistribute(mesh, rows)
+    lf_l, lab = lf.to_local(), labels.to_local().long()
+    off, n = shd.block_offset(lf, lf.dim() - 1), lf_l.shape[-1]
+    mine = (lab >= off) & (lab < off + n)
+    g = lf_l.gather(-1, (lab - off).clamp(0, n - 1)[..., None])[..., 0]
+    g = torch.where(mine, g, 0.0)
+    g = shd.psum_to_all(g, shd.mesh_groups(mesh, vdims))
+    return DTensor.from_local(g, mesh, rows, run_check=False)
+
+
+def logsumexp(lf):
+    """``torch.logsumexp(lf, -1)``.  Over vocab-sharded DTensor logits each
+    rank sums ``exp(lf - m)`` over its block (``m`` the maximum over the
+    ranks that split the vocab) and the sums are added over those ranks:
+    the logits are never gathered."""
+    if not isinstance(lf, DTensor):
+        return torch.logsumexp(lf, dim=-1)
+    mesh = lf.device_mesh
+    vdims = shd.mesh_dims_of(lf, lf.dim() - 1)
+    groups = shd.mesh_groups(mesh, vdims)
+    if not groups:
+        return shd.rowwise(lambda a: torch.logsumexp(a, dim=-1)[..., None],
+                           lf)[..., 0]
+    rows = tuple(Replicate() if m in vdims else p
+                 for m, p in enumerate(lf.placements))
+    lf_l = lf.to_local()
+    m = lf_l.detach().amax(dim=-1)
+    for g in groups:
+        m = shd.group_pmax(m, g)
+    tot = shd.psum_to_all(torch.exp(lf_l - m[..., None]).sum(dim=-1), groups)
+    return DTensor.from_local(torch.log(tot) + m, mesh, rows,
+                              run_check=False)
+
+
 def loss_fn(cfg: ModelConfig, params, batch):
     """Causal LM loss → (loss, metrics): the mean over ``batch["mask"]``
     (all ones when absent) of logsumexp − the gold logit, in float32
@@ -405,9 +565,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
                           embeds=batch.get("embeds"))
     labels = batch["labels"]
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    nll = logsumexp(lf) - gold_logits(lf, labels)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)

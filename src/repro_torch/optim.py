@@ -25,6 +25,13 @@ layers on its leading dim) is updated a layer at a time, so that an
 update's float32 temporaries stay the size of one layer's matrix and not
 of the stack's (805 M values for phi3-mini's ``blocks/mlp/w_up``).
 
+Across ranks the leaves are DTensors, each gradient placed as its
+parameter (``models.steps.loss_and_grad``: the data-parallel reduction).
+The global norm sums every leaf's local squares over the mesh dims that
+shard it; AdamW updates each rank's blocks in place, a slab at a time as
+on one card; Adafactor's factors, which reduce over a sharded dim, are
+DTensor operations whose results are redistributed into the state.
+
 ``compressed_psum`` is the reference's int8 all-reduce with error
 feedback, over a named axis of the mesh in scope (``sharding``).
 """
@@ -36,6 +43,7 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.pi_search import torch_dtype
 from repro_torch.models.base import params_from_numpy
 
@@ -71,6 +79,13 @@ def _param_nodes(params, tree) -> list:
     return [tree]
 
 
+def _tree(tree, fn):
+    """``fn`` of every leaf, visited in sorted-key order."""
+    if isinstance(tree, dict):
+        return {k: _tree(tree[k], fn) for k in sorted(tree)}
+    return fn(tree)
+
+
 def _slabs(x: torch.Tensor):
     """``x`` as views of one layer each where it is a stack of matrices
     (rank >= 3), else ``x`` alone."""
@@ -88,17 +103,39 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _sharded_dims(x) -> tuple:
+    """The mesh dims of more than one rank over which a DTensor is split
+    (none for a plain tensor)."""
+    if not shd.is_dtensor(x):
+        return ()
+    return tuple(m for m, p in enumerate(x.placements)
+                 if p.is_shard() and x.device_mesh.size(m) > 1)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale ``grads`` in place so that their global norm is at most
-    ``max_norm``; returns (grads, the norm before clipping)."""
+    ``max_norm``; returns (grads, the norm before clipping).  A DTensor's
+    squares are summed over its block, then over the ranks that split it
+    (one sum a set of such mesh dims)."""
     with torch.no_grad():
-        total = 0
+        parts = {}
         for g in _leaves(grads):
-            total = total + sum(s.float().square().sum() for s in _slabs(g))
+            key = _sharded_dims(g)
+            ss = sum(s.float().square().sum()
+                     for s in _slabs(shd.local(g)))
+            parts[key] = parts.get(key, 0) + ss
+        total = 0
+        for key, ss in parts.items():
+            if key:
+                mesh = next(g for g in _leaves(grads)
+                            if shd.is_dtensor(g)).device_mesh
+                for grp in shd.mesh_groups(mesh, key):
+                    ss = shd.group_psum(ss, grp)
+            total = total + ss
         gn = torch.sqrt(total)
         scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
         for g in _leaves(grads):
-            g.mul_(scale)
+            shd.local(g).mul_(scale)
     return grads, gn
 
 
@@ -119,17 +156,18 @@ def adamw_init(cfg: OptConfig, params):
 
 
 def adamw_update(cfg: OptConfig, grads, state, params):
-    """One AdamW step, written into ``params`` and ``state``'s moments."""
+    """One AdamW step, written into ``params`` and ``state``'s moments
+    (each rank's blocks of DTensors)."""
     count = state["count"] + 1
-    lr = schedule(cfg, count)
+    c = shd.local(count).float()
+    lr = schedule(cfg, c)
     b1, b2 = cfg.b1, cfg.b2
-    c = count.float()
     bc1 = 1 - torch.pow(b1, c)
     bc2 = 1 - torch.pow(b2, c)
     with torch.no_grad():
         for leaf in zip(_leaves(grads), _leaves(state["m"]),
                         _leaves(state["v"]), _leaves(params)):
-            for g, m, v, p in zip(*map(_slabs, leaf)):
+            for g, m, v, p in zip(*(_slabs(shd.local(x)) for x in leaf)):
                 gf = g.float()
                 m2 = b1 * m.float() + (1 - b1) * gf
                 v2 = b2 * v.float() + (1 - b2) * gf * gf
@@ -162,10 +200,12 @@ def adafactor_init(cfg: OptConfig, params):
 def adafactor_update(cfg: OptConfig, grads, state, params):
     """One Adafactor step, written into ``params`` and ``state``'s
     factors.  The RMS clip reduces over a whole leaf, so a leaf is
-    updated at once."""
+    updated at once (as DTensors across ranks: the factors and the clip
+    reduce over sharded dims)."""
     count = state["count"] + 1
-    lr = schedule(cfg, count)
-    decay = 1.0 - count.float() ** -0.8
+    c = shd.local(count).float()
+    lr = schedule(cfg, c)
+    decay = 1.0 - c ** -0.8
     with torch.no_grad():
         for g, f, p in zip(_leaves(grads), _param_nodes(params, state["f"]),
                            _leaves(params)):
@@ -176,16 +216,17 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
                 col = decay * f["col"] + (1 - decay) * g2.mean(dim=-2)
                 rfac = row / row.mean(dim=-1, keepdim=True)
                 v = rfac[..., None] * col[..., None, :]
-                f["row"].copy_(row)
-                f["col"].copy_(col)
+                shd.copy_into(f["row"], row)
+                shd.copy_into(f["col"], col)
             else:
                 v = decay * f["v"] + (1 - decay) * g2
-                f["v"].copy_(v)
+                shd.copy_into(f["v"], v)
             step = gf / torch.clamp_min(torch.sqrt(v), 1e-30)
             # update clipping (RMS <= 1) per Adafactor
             rms = torch.sqrt(step.square().mean())
             step = step / torch.clamp_min(rms, 1.0)
-            p.copy_(p.float() * (1 - lr * cfg.weight_decay) - lr * step)
+            shd.copy_into(p, p.float() * (1 - lr * cfg.weight_decay) -
+                          lr * step)
     return params, {"f": state["f"], "count": count}
 
 
@@ -200,7 +241,11 @@ def init(cfg: OptConfig, params):
 
 def update(cfg: OptConfig, grads, state, params):
     """Clip ``grads`` (in place) and take one step; returns (params,
-    state, the gradients' global norm before clipping)."""
+    state, the gradients' global norm before clipping).  DTensor
+    gradients are first redistributed to their parameters' placements
+    (partial sums reduced)."""
+    flat = iter(_leaves(params))
+    grads = _tree(grads, lambda g: shd.placed_like(g, next(flat)))
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     if cfg.kind == "adafactor":
         p2, s2 = adafactor_update(cfg, grads, state, params)

@@ -434,10 +434,25 @@ def test_interval_fsync_refused_across_ranks(runs):
 
 
 def test_moe_shardmap_refuses_backward_across_ranks(runs):
-    """Its collectives carry no gradient: with autograd recording on a
-    mesh of eight ranks every rank raises, naming ROADMAP A13."""
+    """Its collectives now carry the gradient: on the mesh of eight ranks
+    every rank's gradient of sum(y^2) + lb_loss, for x and every weight,
+    lies within 1e-5 of each leaf's largest of the port's one-process
+    ``moe_apply`` (drop-free at this size)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import moe
+    z = load(runs.dir, "moe.npz")
+    cfg = smoke(get_config("granite-moe-3b-a800m"))
+    leaves = [torch.from_numpy(z[k]).requires_grad_()
+              for k in ("x",) + R.MOE_LEAVES]
+    y, lb = moe.moe_apply(cfg, dict(zip(R.MOE_LEAVES, leaves[1:])),
+                          leaves[0])
+    want = torch.autograd.grad(y.square().sum() + lb, leaves)
     for rk in runs.ranks[8]:
-        assert "ROADMAP A13" in str(rk["moe/grad"])
+        for k, w in zip(("x",) + R.MOE_LEAVES, want):
+            w = w.numpy()
+            np.testing.assert_allclose(rk[f"moe/grad/{k}"], w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=k)
 
 
 def test_moe_shardmap_across_ranks(runs):
@@ -503,13 +518,39 @@ def test_logical_to_spec_matches_reference(runs, multi):
 
 def test_mesh_shapes_and_refusals(runs):
     """The test mesh's shape and names; a production mesh on eight ranks
-    is a ``ValueError``; ``constrain``, ``named_sharding`` and
-    ``tree_shardings`` under a mesh of several ranks raise and name
-    ROADMAP A13."""
-    for rk in runs.ranks[8]:
+    is a ``ValueError``; under a mesh of several ranks ``constrain``
+    redistributes a DTensor to the rules' placements (each rank's block
+    of the (8, 4) arange: rows by "data", columns by "model") and
+    refuses a plain tensor, ``named_sharding`` and ``tree_shardings``
+    give ``(mesh, placements)``."""
+    full = np.arange(32.0).reshape(8, 4)
+    for r, rk in enumerate(runs.ranks[8]):
         assert rk["mesh/shape"].tolist() == [4, 2]
         assert json.loads(str(rk["mesh/names"])) == ["data", "model"]
         assert rk["mesh/axis"].tolist() == [4, 2]
         msgs = json.loads(str(rk["mesh/refusals"]))
-        assert len(msgs) == 4 and "256 ranks" in msgs[0]
-        assert all("ROADMAP A13" in m for m in msgs[1:])
+        assert len(msgs) == 2 and "256 ranks" in msgs[0]
+        assert "plain tensor" in msgs[1]
+        i, j = divmod(r, 2)
+        np.testing.assert_array_equal(rk["mesh/constrain"],
+                                      full[2 * i:2 * i + 2, 2 * j:2 * j + 2])
+        y, pl, w, v, same = json.loads(str(rk["mesh/placements"]))
+        assert y == pl == "(Shard(dim=0), Shard(dim=1))"
+        assert w == "(Shard(dim=0), Replicate())"
+        assert v == "(Replicate(), Shard(dim=0))" and same
+
+
+def test_stray_local_block_raises_under_mesh(runs):
+    """Under a mesh of several ranks a rank's own block taken out of a
+    DTensor (``to_local``), or a plain constant, that meets a DTensor in
+    an op raises: nothing takes a plain tensor as replicated.  A constant
+    declared replicated (``sharding.replicated``) combines blockwise."""
+    full = np.arange(32.0).reshape(8, 4)
+    for r, rk in enumerate(runs.ranks[8]):
+        stray = json.loads(str(rk["mesh/stray"]))
+        assert len(stray) == 2
+        for msg in stray:
+            assert "mixed torch.Tensor and DTensor" in msg, msg
+        i, j = divmod(r, 2)
+        np.testing.assert_array_equal(
+            rk["mesh/declared"], 2 * full[2 * i:2 * i + 2, 2 * j:2 * j + 2])

@@ -32,8 +32,8 @@ the loop tests (the port's draws on a ``torch.Generator``, not on
 ``jax.random``).
 """
 import dataclasses
+import os
 import shutil
-import types
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks as R
 from repro import data as jdata
 from repro import optim as jopt
 from repro.configs import get_config as jget_config
@@ -445,6 +446,10 @@ def test_train_loop_moe_families(tmp_path, arch):
 
 
 def test_train_mesh_one_device_and_more(tmp_path):
+    """A one-device mesh; several devices in one process refused; and a
+    ``core.distributed.Mesh`` whose data axis spans two ``gloo`` ranks
+    (``torch_ranks``' ``train2``): both ranks' losses within
+    ``RESUME_RTOL`` of one process's."""
     loop = ttrain.TrainLoopConfig(steps=2, ckpt_every=50,
                                   ckpt_dir=str(tmp_path))
     res = ttrain.train(TINY, OPT, loop, dcfg(TINY),
@@ -452,13 +457,14 @@ def test_train_mesh_one_device_and_more(tmp_path):
     assert res.final_step == 1
     with pytest.raises(ValueError, match="process group"):
         ttrain.train(TINY, OPT, loop, dcfg(TINY), mesh=["cpu", "meta"])
-    # a mesh whose data axis spans two ranks (a stand-in DeviceMesh: the
-    # refusal reads only its axis sizes)
-    two = types.SimpleNamespace(mesh_dim_names=("data",),
-                                size=lambda dim=None: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ttrain.train(TINY, OPT, loop, dcfg(TINY), mesh=make_mesh(
-            (2,), ("data",), device="cpu", device_mesh=two))
+    d = str(tmp_path / "ranks")
+    os.makedirs(d)
+    R.wait(R.spawn(2, d, ["train2"], "t2"), 120)
+    one = ttrain.train(TINY, OPT, dataclasses.replace(
+        loop, ckpt_dir=str(tmp_path / "one")), dcfg(TINY), device="cpu")
+    for r in range(2):
+        got = np.load(os.path.join(d, f"p2-rank{r}.npz"))["train2/losses"]
+        np.testing.assert_allclose(got, one.losses, rtol=RESUME_RTOL)
 
 
 @pytest.mark.parametrize("moments", ["bfloat16", "float32"])

@@ -11,7 +11,10 @@ The programs mirror the reference's ``shard_map`` tests at S = 8 shards:
 the fence-sharded index (windows, rebuilds, ``collect_pairs``, ranges, the
 sharded ``Dispatcher``, durability written by four ranks and recovered by
 others), and, on eight ranks, ``moe_apply_shardmap``, ``compressed_psum``,
-``pipelined_forward`` and ``logical_to_spec`` on the test meshes.
+``pipelined_forward`` and ``logical_to_spec`` on the test meshes.  The LM
+programs (``lm8``, ``lm2``, ``train2``) place the language model's state
+over a mesh and train, prefill, decode, differentiate the expert layer and
+restore checkpoints there (``tests/test_torch_lm_mesh.py``).
 """
 import contextlib
 import datetime
@@ -303,12 +306,18 @@ def moe_program(device_mesh, out, directory):
     x = torch.from_numpy(z["x"])
     with shd.use_mesh(device_mesh):
         y, lb = moe.moe_apply_shardmap(cfg, p, x)
-        try:
-            moe.moe_apply_shardmap(cfg, p, x.requires_grad_())
-            out["moe/grad"] = np.array("no error")
-        except NotImplementedError as e:
-            out["moe/grad"] = np.array(str(e))
+        # with a gradient: of sum(y^2) + lb_loss, for x and every weight
+        leaves = [x.clone().requires_grad_()] + \
+            [p[k].clone().requires_grad_() for k in MOE_LEAVES]
+        y2, lb2 = moe.moe_apply_shardmap(
+            cfg, dict(zip(MOE_LEAVES, leaves[1:])), leaves[0])
+        grads = torch.autograd.grad(y2.square().sum() + lb2, leaves)
     out["moe/y"], out["moe/lb"] = y.numpy(), np.asarray(lb.item())
+    for k, g in zip(("x",) + MOE_LEAVES, grads):
+        out[f"moe/grad/{k}"] = g.numpy()
+
+
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
 def psum_program(device_mesh, out, directory):
@@ -364,6 +373,257 @@ def specs_program(out):
 
 
 # ---------------------------------------------------------------------------
+# the LM across ranks
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("phi3-mini-3.8b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+            "mamba2-2.7b", "recurrentgemma-9b")
+LM_MESHES = {"42": ((4, 2), ("data", "model")),
+             "222": ((2, 2, 2), ("pod", "data", "model")),
+             "12": ((1, 2), ("data", "model"))}
+LM_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=50)
+LM_B, LM_S = 8, 16
+LM_STEPS = 4            # a run resumes the step-0 state: steps 1..3
+LM_PROMPT = 12          # prefill of LM_B x LM_PROMPT, then a decode step
+LM_ELASTIC = "port-42-phi3-mini-3.8b"   # the 8-rank run restored elsewhere
+
+
+def lm_batch_np(cfg, step, host=0, n_hosts=1, **_):
+    """Both packages' ``lm_batch`` in the LM tests: the batch of (seed,
+    step) from numpy."""
+    rng = np.random.default_rng((cfg.seed, step, host))
+    ranks = np.minimum((rng.uniform(1e-6, 1, (cfg.global_batch // n_hosts,
+                                              cfg.seq_len + 1))
+                        ** (-1 / 1.1)).astype(np.int32), cfg.vocab - 1)
+    return {"tokens": ranks[:, :-1], "labels": ranks[:, 1:]}
+
+
+def patch_lm_batch():
+    import torch
+    from repro_torch import data
+    data.lm_batch = lambda *a, **k: {
+        n: torch.from_numpy(np.ascontiguousarray(x))
+        for n, x in lm_batch_np(*a, **k).items()}
+
+
+def lm_setup(arch, kind="adamw"):
+    """(cfg, OptConfig, DataConfig, TrainLoopConfig factory) of a test
+    run: the ``smoke()`` config."""
+    from repro_torch import data, optim
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import train
+    cfg = smoke(get_config(arch))
+    opt = optim.OptConfig(kind=kind, **LM_OPT)
+    dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=LM_S,
+                           global_batch=LM_B)
+
+    def loop(directory, **kw):
+        return train.TrainLoopConfig(steps=LM_STEPS, ckpt_every=50,
+                                     ckpt_dir=directory, sync_ckpt=True,
+                                     **kw)
+    return cfg, opt, dcfg, loop
+
+
+def lm_block_checks(out, tag, tree, full):
+    """Each leaf's local block against the whole leaf sliced where the
+    block sits, bit for bit; its (offset, shape) for the comparison with
+    JAX's ``devices_indices_map``."""
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.optim import _leaves
+    ok, where = True, []
+    for a, w in zip(_leaves(tree), _leaves(full)):
+        shape, off = compute_local_shape_and_global_offset(
+            tuple(a.shape), a.device_mesh, a.placements)
+        blk = torch.as_tensor(w)[tuple(slice(o, o + n)
+                                       for o, n in zip(off, shape))]
+        ok = ok and torch.equal(a.to_local().cpu(), blk)
+        where.append([list(off), list(shape)])
+    out[f"{tag}/blocks_equal"] = np.array(ok)
+    out[f"{tag}/where"] = np.array(json.dumps(where))
+
+
+def lm_specs_program(dm, mtag, out):
+    """(offset, shape) of every rank's block of every leaf of every
+    config's abstract train state (AdamW and Adafactor)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch import optim
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import steps
+    table = {}
+    for arch in ARCH_IDS:
+        for kind in ("adamw", "adafactor"):
+            sh = steps.train_state_shardings(
+                get_config(arch), optim.OptConfig(kind=kind), dm)
+            ab = steps.abstract_train_state(get_config(arch),
+                                            optim.OptConfig(kind=kind))
+            for part, tree in (("params", ab[0]), ("opt", ab[2])):
+                for i, (a, (_, pl)) in enumerate(zip(
+                        optim._leaves(tree), _sh_leaves(sh[part]))):
+                    shape, off = compute_local_shape_and_global_offset(
+                        tuple(a.shape), dm, pl)
+                    table[f"{arch}/{kind}/{part}/{i}"] = [list(off),
+                                                          list(shape)]
+    out[f"{mtag}/specs"] = np.array(json.dumps(table, sort_keys=True))
+
+
+def _sh_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _sh_leaves(tree[k])]
+    return [tree]
+
+
+def lm_train_program(dm, mtag, archs, out, directory):
+    """Each config: the step-0 checkpoint restored onto the mesh (its
+    blocks checked), the parameters drawn onto the mesh by
+    ``init_train_state`` (the same), then ``train()`` resuming the
+    checkpoint for steps 1..3 on every rank."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    for arch in archs:
+        cfg, opt, dcfg, loop = lm_setup(arch)
+        d = os.path.join(directory, f"port-{mtag}-{arch}")
+        sh = steps.train_state_shardings(cfg, opt, dm)
+        params, _, ostate, _ = steps.abstract_train_state(cfg, opt)
+        mgr = checkpoint.CheckpointManager(d)
+        placed = mgr.restore(0, {"params": params, "opt": ostate}, sh)
+        host = mgr.restore(0, {"params": params, "opt": ostate},
+                           device="cpu")
+        lm_block_checks(out, f"{mtag}/{arch}/restore", placed, host)
+        p, o = steps.init_train_state(cfg, opt,
+                                      torch.Generator().manual_seed(0),
+                                      shardings=sh)
+        p0, o0 = steps.init_train_state(cfg, opt,
+                                        torch.Generator().manual_seed(0),
+                                        device="cpu")
+        lm_block_checks(out, f"{mtag}/{arch}/init", {"params": p, "opt": o},
+                        {"params": p0, "opt": o0})
+        res = train.train(cfg, opt, loop(d), dcfg, mesh=dm)
+        out[f"{mtag}/{arch}/losses"] = np.array(res.losses)
+        out[f"{mtag}/{arch}/restored"] = np.array(res.restored_from)
+
+
+def lm_serve_program(dm, mtag, archs, out, directory):
+    """Each config's step-0 parameters on the mesh: a prefill of LM_B x
+    LM_PROMPT tokens and one decode step; rank 0's logits, gathered."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch import sharding as shd
+    from repro_torch.models import decode, steps
+    for arch in archs:
+        cfg, opt, _, _ = lm_setup(arch)
+        params, _, ostate, _ = steps.abstract_train_state(cfg, opt)
+        sh = steps.train_state_shardings(cfg, opt, dm)
+        st = checkpoint.CheckpointManager(os.path.join(
+            directory, f"init-{arch}")).restore(
+            0, {"params": params, "opt": ostate}, sh)
+        tok = torch.from_numpy(lm_prompt(cfg))
+        with torch.no_grad(), shd.use_mesh(dm):
+            logits, cache = decode.prefill(
+                cfg, st["params"], tokens=steps.place_batch(
+                    {"tokens": tok}, dm)["tokens"], total_len=LM_PROMPT + 4)
+            nt = tok[:, -1:]
+            step, _ = decode.decode_step(
+                cfg, st["params"], cache, shd.place_tensor(
+                    nt, dm, shd.placements_of(("batch", None), nt.shape)),
+                LM_PROMPT)
+        out[f"{mtag}/{arch}/prefill"] = shd.full(logits).numpy()
+        out[f"{mtag}/{arch}/decode"] = shd.full(step).numpy()
+
+
+def lm_prompt(cfg):
+    return np.random.default_rng(5).integers(
+        0, cfg.vocab, (LM_B, LM_PROMPT)).astype(np.int32)
+
+
+def moe_grad_program(dm, out, directory):
+    """The gradients of sum(y^2) + lb_loss through ``moe_apply_shardmap``
+    on the (2, 2, 2) mesh, with ``test_moe_parity.py``'s inputs (every
+    rank the same plain tensors: the replicated activations)."""
+    import dataclasses
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import moe
+    z = dict(np.load(os.path.join(directory, "moe_grad.npz")))
+    cfg = dataclasses.replace(smoke(get_config("granite-moe-3b-a800m")),
+                              moe_capacity=64.0)
+    p = {k: torch.from_numpy(z[k]).requires_grad_() for k in
+         ("router", "w_gate", "w_up", "w_down")}
+    with shd.use_mesh(dm):
+        y, lb = moe.moe_apply_shardmap(cfg, p, torch.from_numpy(z["x"]))
+        loss = y.square().sum() + lb
+        grads = torch.autograd.grad(loss, list(p.values()))
+    for k, g in zip(p, grads):
+        out[f"moe_grad/{k}"] = g.numpy()
+    out["moe_grad/loss"] = np.array(loss.item())
+
+
+def lm_elastic_program(out, directory):
+    """The 8-rank run's last checkpoint restored onto this mesh: every
+    leaf gathered."""
+    from repro_torch import checkpoint
+    from repro_torch import sharding as shd
+    from repro_torch.models import steps
+    from repro_torch.optim import _leaves
+    dm = lm_mesh("12")
+    cfg, opt, _, _ = lm_setup("phi3-mini-3.8b")
+    params, _, ostate, _ = steps.abstract_train_state(cfg, opt)
+    mgr = checkpoint.CheckpointManager(os.path.join(directory, LM_ELASTIC))
+    st = mgr.restore(mgr.latest_step(), {"params": params, "opt": ostate},
+                     steps.train_state_shardings(cfg, opt, dm))
+    for i, x in enumerate(_leaves(st)):
+        out[f"elastic/leaf{i}"] = shd.full(x).numpy()
+
+
+def lm_mesh(mtag):
+    from repro_torch.launch import mesh as lmesh
+    shape, names = LM_MESHES[mtag]
+    return lmesh.make_mesh(shape, names, device_type="cpu", timeout=TIMEOUT)
+
+
+def lm_programs(progs, out, directory):
+    if "lm8" in progs or "lm2" in progs:
+        patch_lm_batch()
+    if "lm8" in progs:
+        for mtag in ("42", "222"):
+            dm = lm_mesh(mtag)
+            lm_specs_program(dm, mtag, out)
+            lm_train_program(dm, mtag, LM_ARCHS, out, directory)
+        open(os.path.join(directory, "lm8.done"), "w").close()
+        lm_serve_program(lm_mesh("42"), "42", LM_ARCHS, out, directory)
+        moe_grad_program(lm_mesh("222"), out, directory)
+    if "lm2" in progs:
+        dm = lm_mesh("12")
+        lm_train_program(dm, "12", LM_ARCHS[:1], out, directory)
+        from repro_torch.launch import train
+        cfg, opt, dcfg, loop = lm_setup("phi3-mini-3.8b", "adafactor")
+        res = train.train(cfg, opt, loop(os.path.join(
+            directory, "port-12-adafactor"), grad_accum=2), dcfg, mesh=dm)
+        out["12/adafactor/losses"] = np.array(res.losses)
+        lm_elastic_program(out, directory)
+    if "train2" in progs:
+        # training over a core.distributed.Mesh whose axis spans two ranks
+        from repro_torch import data
+        from repro_torch.core.distributed import make_mesh
+        from repro_torch.launch import mesh as lmesh
+        from repro_torch.launch import train
+        cfg, opt, _, _ = lm_setup("phi3-mini-3.8b")
+        dm = lmesh.make_mesh((2,), ("data",), device_type="cpu",
+                             timeout=TIMEOUT)
+        res = train.train(cfg, opt, train.TrainLoopConfig(
+            steps=2, ckpt_every=50, ckpt_dir=os.path.join(directory,
+                                                          "train2")),
+            data.DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2),
+            mesh=make_mesh((2,), ("data",), device="cpu", device_mesh=dm))
+        out["train2/losses"] = np.array(res.losses)
+
+
+# ---------------------------------------------------------------------------
 # a rank
 # ---------------------------------------------------------------------------
 
@@ -403,14 +663,18 @@ def main(args):
                                          timeout=TIMEOUT), out, directory)
             specs_program(out)
             mesh_checks(out)
+        lm_programs(progs, out, directory)
         np.savez(os.path.join(directory, f"p{world}-rank{rank}.npz"), **out)
     finally:
         tdist.destroy_process_group()
 
 
 def mesh_checks(out):
-    """The refusals under a mesh of several ranks, and the mesh shapes."""
+    """The mesh shapes, the refusals, and the GSPMD half under a mesh of
+    several ranks: ``constrain`` of a DTensor, ``named_sharding``,
+    ``tree_shardings``."""
     import torch
+    from torch.distributed.tensor import Replicate
     from repro_torch import sharding as shd
     from repro_torch.launch import mesh as lmesh
     msgs = []
@@ -423,15 +687,33 @@ def mesh_checks(out):
     out["mesh/shape"] = np.array(list(m.mesh.shape))
     out["mesh/names"] = np.array(json.dumps(list(m.mesh_dim_names)))
     with shd.use_mesh(m):
-        for fn in (lambda: shd.constrain(torch.zeros(4), "batch"),
-                   lambda: shd.named_sharding(("batch",)),
-                   lambda: shd.tree_shardings({"w": ("batch",)}, m)):
-            try:
-                fn()
-            except NotImplementedError as e:
-                msgs.append(str(e))
+        x = shd.place_tensor(torch.arange(32.0).reshape(8, 4), m,
+                             (Replicate(), Replicate()))
+        y = shd.constrain(x, "batch", "mlp")
+        out["mesh/constrain"] = y.to_local().numpy()
+        try:
+            shd.constrain(torch.zeros(4), "batch")
+        except TypeError as e:      # a plain tensor is never placed
+            msgs.append(str(e))
+        _, pl = shd.named_sharding(("batch", "mlp"), shape=(8, 4))
+        tree = shd.tree_shardings({"w": ("batch",), "v": ("mlp", None)}, m)
+        out["mesh/placements"] = np.array(json.dumps(
+            [repr(y.placements), repr(pl), repr(tree["w"][1]),
+             repr(tree["v"][1]), tree["w"][0] is m]))
         out["mesh/axis"] = np.array([shd.axis_size("data"),
                                      shd.axis_size("model")])
+        # a rank's own block leaked out of its DTensor, and a plain
+        # constant not declared replicated, meet a DTensor: both raise
+        stray = []
+        for other in (y.to_local(), torch.ones(8, 4)):
+            try:
+                y + other
+                stray.append("")
+            except RuntimeError as e:
+                stray.append(str(e))
+        out["mesh/stray"] = np.array(json.dumps(stray))
+        out["mesh/declared"] = (y * shd.replicated(torch.full((8, 4), 2.0),
+                                                   y)).to_local().numpy()
     out["mesh/refusals"] = np.array(json.dumps(msgs))
 
 
