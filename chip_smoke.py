@@ -215,9 +215,9 @@ fence-routed shards, windows of 8192 operations.  Phases:
    on the CPU: ``forward``, ``prefill``, three decode steps, ``loss_fn``
    with every gradient and one AdamW step within ``CARD_CPU_TOL``;
 15. ``[lm:ssm]``, ``[serve:lm:ssm]`` and ``[train:ssm]``: 9, 10 and 11
-   (b), (c) for mamba2-2.7b at its published widths, 32 of its 64 layers
+   (b), (c) for mamba2-2.7b at its published widths, 16 of its 64 layers
    (``LM_DEPTH``; d 2560, state 128, 80 heads of 64, conv 4, chunk 128,
-   vocab 50280 padded to 50432, tied; 1,416,038,400 parameters by its
+   vocab 50280 padded to 50432, tied; 772,573,440 parameters by its
    layout at that depth):
    no attention, so no flash launch; the float32 prefill of 2 x 200
    tokens (no multiple of the chunk: the prefill pads with dt = 0)
@@ -227,12 +227,12 @@ fence-routed shards, windows of 8192 operations.  Phases:
    chunks, ``out_proj``); every train loss finite, the last below the
    first;
 16. ``[lm:griffin]``, ``[serve:lm:griffin]`` and ``[train:griffin]``:
-   recurrentgemma-9b at its published widths, 14 of its 38 layers
-   (``LM_DEPTH``: 4 groups of (rec, rec, attn) and the tail of 2 rec, d
+   recurrentgemma-9b at its published widths, 8 of its 38 layers
+   (``LM_DEPTH``: 2 groups of (rec, rec, attn) and the tail of 2 rec, d
    4096, 16 heads of 256 over 1 KV head, window 2048, lru 4096, GeGLU
-   d_ff 12288, vocab 256000, tied and scaled embeddings; 3,808,956,416
+   d_ff 12288, vocab 256000, tied and scaled embeddings; 2,630,144,000
    parameters at that depth): the 8 x 2048 prefill (the flash kernel
-   once an attention layer, 4), its
+   once an attention layer, 2), its
    ring cache quantized to int8 and back by ``models/kvquant.py`` within
    ``tests/test_kvquant.py``'s bound, with ``cache_bytes`` equal to the
    tensors' bytes, 64 decode steps, a prefill of 2 x 4096 (the window
@@ -244,7 +244,29 @@ fence-routed shards, windows of 8192 operations.  Phases:
    + 2 = 5 layers (the full depth's float32 state needs ~102 GB; 8
    layers peaked at 72 GiB), from the first group and the tail of the
    float32 draw;
-17. check that each path launched its kernels: ``pi_probe``, ``pi_search``
+17. ``[examples]``: the seven examples of ``examples_torch/`` through
+   their ``main`` in this process on the card, at the reference's sizes
+   but ``train_lm``'s steps (``EXAMPLE_TRAIN_STEPS``, 60 of its 300), its
+   checkpoints under ``build/example_train_ckpt`` (removed at the end):
+   each example's own checks hold (durable's bit-identical recovery,
+   overload's every acknowledged op, train_lm's falling loss), quickstart's
+   results equal its run on the CPU in this script bit for bit, and each
+   reaches its kernels (``pi_probe`` and ``bitonic_sort`` every index
+   example and the LM server's table, ``pi_range`` quickstart, the float32
+   flash kernel train_lm, ``pi_probe`` 8 a window distributed_index);
+18. ``[roofline]``, on the host with no card work: the census
+   (``roofline/census.py``, on ``meta`` tensors) of each step the LM
+   phases timed (the prefill and a decode step of ``[lm]``, ``[lm:moe]``,
+   ``[lm:ssm]``, ``[lm:griffin]`` and the step of each ``[train*]``, at
+   the configs and shapes they ran), priced by ``roofline/model.py``:
+   roofline time, bottleneck, MFU and the share, roofline time over
+   measured time, which must not pass ``ROOFLINE_SHARE_MAX`` (1.05: no
+   program beats its card's roofline); the census's peak bytes beside
+   ``max_memory_allocated``, within ``PEAK_TOL`` (25 %) either way for
+   phi3's prefill and train step; and the production dry-run cell
+   phi3-mini-3.8b train_4k over a fake process group of 256 ranks
+   (``launch/dryrun.py``).  17 and 18 take at most 120 s together;
+19. check that each path launched its kernels: ``pi_probe``, ``pi_search``
    and ``bitonic_sort`` on the point path, ``pi_probe`` and
    ``bitonic_sort`` once a window and ``pi_range`` once a range-bearing
    window on the serving, the durable, the overload and every LM serving
@@ -252,7 +274,7 @@ fence-routed shards, windows of 8192 operations.  Phases:
    range-bearing window) on the sharded path and on ``[mesh]``'s ranks
    together, ``flash_attention_fwd``
    once an attention layer of every GQA prefill and forward (griffin's
-   4 of 14) and twice one of every train step (MLA takes the plain
+   2 of 8) and twice one of every train step (MLA takes the plain
    attention, mamba2 has none).  The script prints its own time.
 
 ``--profile N`` adds device time by kernel over N point windows, N
@@ -279,12 +301,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the non-tensor
-# float32 rate, taken as the rate of the int32 compares these kernels do,
-# and the dense bfloat16 tensor-core rate (attention's operations).
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# H100 SXM peaks, from the port's roofline model (NVIDIA data sheet): HBM
+# bandwidth, the non-tensor float32 rate, taken as the rate of the int32
+# compares these kernels do, and the dense bfloat16 tensor-core rate
+# (attention's operations)
+from repro_torch.roofline.model import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline.model import \
+    PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.roofline.model import \
+    PEAK_FLOPS_F32 as SCALAR_OPS_PER_S  # noqa: E402
 
 DEVICE = "cuda"
 N_KEYS = 1 << 24     # YCSB dataset size (paper: 2M..256M)
@@ -335,24 +360,28 @@ MLA_ARCH = "deepseek-v3-671b"
 SSM_ARCH = "mamba2-2.7b"
 GRIFFIN_ARCH = "recurrentgemma-9b"
 # the LM phases' depths where cut from the published ones, to keep the
-# script inside its 1200 s with [mesh:train] at phi3's full depth:
-# mamba2's 64 layers halved, recurrentgemma's 38 cut to 4 groups and the
-# tail of 2 (the draw on the host and the host-bound decode steps are
-# near proportional to the layers).  Measured on one H100: the script
-# took 983.7 s with both cut and 1096.5 s with mamba2 at 64 (recurrent-
-# gemma's 38 add ~81 s more), while one machine ran the same script 13 %
-# slower than another: only both cuts keep that much margin.  granite-
-# moe keeps its 32: at 16 layers, another draw, its float32 prefill-vs-
-# decode check missed its bar by a routing near-tie (the cache's k
-# 0.0472 apart against 0.00496)
-LM_DEPTH = {SSM_ARCH: 32, GRIFFIN_ARCH: 14}
+# script inside 1100 s with [mesh:train] at phi3's full depth and the
+# [examples] and [roofline] phases: mamba2's 64 layers cut to 16,
+# recurrentgemma's 38 to 2 groups and the tail of 2 (the draw on the
+# host and the host-bound decode steps are near proportional to the
+# layers).  Measured on one H100: before the two phases the script
+# took 983.7 s with mamba2 at 32 and recurrentgemma at 14 and 1096.5 s
+# with mamba2 at 64; with them, at 32 and 14, 1113.7 s (34.0 s of it
+# theirs; the phases before them took 1079.7 s there against 983.7 s:
+# one machine has run the same script 13 % slower than another);
+# mamba2's phases took 82.0 s at 32 layers, recurrentgemma's 58.9 s at
+# 14.  granite-moe keeps
+# its 32: at 16 layers, another draw, its float32 prefill-vs-decode
+# check missed its bar by a routing near-tie (the cache's k 0.0472 apart
+# against 0.00496)
+LM_DEPTH = {SSM_ARCH: 16, GRIFFIN_ARCH: 8}
 # the full-width models' parameters by their layouts at those depths:
 # phi3's vocab padded to 32256; granite's vocab padded to 49408 and its
 # 48 padded experts; mamba2's vocab padded to 50432 (2,702,968,320 at 64
-# layers); recurrentgemma's 4 groups and 2 tail layers (8,524,206,080 at
+# layers); recurrentgemma's 2 groups and 2 tail layers (8,524,206,080 at
 # its 12 groups)
 LM_PARAMS = {LM_ARCH: 3_822_259_200, MOE_ARCH: 3_903_161_856,
-             SSM_ARCH: 1_416_038_400, GRIFFIN_ARCH: 3_808_956_416}
+             SSM_ARCH: 772_573_440, GRIFFIN_ARCH: 2_630_144_000}
 MLA_LAYER_PARAMS = 187_107_328   # [lm:mla] (i): one MLA layer of deepseek
 MLA_B, MLA_S = 2, 512            # ... its prefill
 MLA_DECODE = 16                  # ... and decode steps over its cache
@@ -414,6 +443,18 @@ DRIVER_TOL = 1e-3
 # norm of its gradient: from lr 1e-4 at step 1, or after the default 100
 # warmup steps, the loss rose back above 10 within 4 steps.
 TRAIN_OPT_ARGS = dict(moment_dtype="bfloat16", warmup_steps=2000)
+# [examples]: train_lm's steps (the reference's default is 300) and its
+# checkpoints
+EXAMPLE_TRAIN_STEPS = 60
+EXAMPLE_CKPT = os.path.join(ROOT, "build", "example_train_ckpt")
+# [roofline]: no step may beat its roofline by more than this share of
+# its measured time, and the census's peak bytes must lie within PEAK_TOL
+# of max_memory_allocated for the steps of PEAK_CHECKED; the production
+# dry-run cell it also counts
+ROOFLINE_SHARE_MAX = 1.05
+PEAK_TOL = 0.25
+PEAK_CHECKED = (("[lm]", "prefill"), ("[train]", "train"))
+ROOFLINE_CELL = ("phi3-mini-3.8b", "train_4k", "single")
 # [kernels:flash]: (name, (B, S, H, KV, D), dtype, options); "phi3" is
 # phi3's prefill, the one timed with the bfloat16 kernel (and
 # recurrentgemma's prefill beside it), "float32" the case timed with the
@@ -2970,7 +3011,7 @@ def run_lm(arch):
     from repro_torch.models import (cast_floats, forward, make_decode_step,
                                     make_prefill_step)
     from repro_torch.models import moe
-    from repro_torch.models.base import tree_leaves
+    from repro_torch.models.base import tree_bytes, tree_leaves
     cfg = lm_config(arch)
     is_moe = cfg.family == "moe"
     tag = LM_TAGS[cfg.family]
@@ -2998,12 +3039,19 @@ def run_lm(arch):
     prefill(params, {"tokens": toks(1, 128)})          # warm-up
     tokens = toks(PREFILL_B, PREFILL_S)
     torch.cuda.synchronize()
+    # the prefill's own peak, its arguments included ([roofline]): the
+    # card's peak during it less what else was allocated then
+    peak_before = torch.cuda.max_memory_allocated()
+    other = torch.cuda.memory_allocated() - tree_bytes(params) - \
+        tokens.numel() * tokens.element_size()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     with moe.record_drops() as drops:
         logits, cache = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated() - other
     launches = launch_counts()
     assert launches["flash_attention_fwd"] == attn_layers(cfg), launches
     assert logits.shape == (PREFILL_B, 1, cfg.vocab_padded)
@@ -3036,7 +3084,7 @@ def run_lm(arch):
         W = ring["pos"].shape[1]
         assert int(ring["pos"][0, (T - 1) % W]) == T - 1
     steps = np.array(steps) * 1e3
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak_before, torch.cuda.max_memory_allocated())
     log(f"{tag} prefill {PREFILL_B} x {PREFILL_S} tokens: "
         f"{1e3 * t_prefill:.6f} ms ({PREFILL_B * PREFILL_S / t_prefill:.1f} "
         f"tokens/s), flash kernel launches {launches['flash_attention_fwd']}"
@@ -3079,6 +3127,7 @@ def run_lm(arch):
     check_prefill_vs_decode(tag, cfg32, params32, toks(CHECK_B, check_s))
     return dict(launches=launches, params=params, params32=params32,
                 cfg=cfg, t_prefill=t_prefill, steps=steps, peak=peak,
+                prefill_peak=prefill_peak,
                 split_prefill=split_prefill, split_decode=split_decode,
                 kvquant=kvquant, long=long)
 
@@ -3321,6 +3370,9 @@ def train_full_width(cfg, params, profile, tag, source="the [lm] phase's "
     is_moe = cfg.family in ("moe", "mla_moe")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # what the card holds besides the step's arguments ([roofline])
+    other = torch.cuda.memory_allocated() - sum(
+        x.numel() * x.element_size() for x in tree_leaves(params))
     t0 = time.perf_counter()
     opt = train_opt()
     opt_state = optim.init(opt, params)
@@ -3390,7 +3442,8 @@ def train_full_width(cfg, params, profile, tag, source="the [lm] phase's "
     del params, opt_state, batches
     torch.cuda.empty_cache()
     return launches, dict(p50=p50, tokens_s=tokens / p50 * 1e3, peak=peak,
-                          losses=losses, split=split)
+                          step_peak=peak - other, cfg=cfg, losses=losses,
+                          split=split)
 
 
 def tree_max_err(got, want, path=""):
@@ -4279,6 +4332,209 @@ def run_mla():
     log(f"[time] [lm:mla] (ii) {time.perf_counter() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# [examples]: the seven examples on the card
+# ---------------------------------------------------------------------------
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples():
+    """``[examples]``: the seven examples of ``examples_torch/`` through
+    their ``main``, in this process on the card, at the reference's
+    sizes (``train_lm`` at ``EXAMPLE_TRAIN_STEPS`` steps, its checkpoints
+    under ``EXAMPLE_CKPT``, removed at the end); each example's own checks
+    hold, and quickstart's results equal its run on the CPU here bit for
+    bit.  Returns the kernel launches of the seven runs."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    want = load_example("quickstart").main(["--device", "cpu"])
+    log(f"[examples] quickstart on the CPU in "
+        f"{time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    runs = (("quickstart", []), ("open_loop_pipeline", []),
+            ("durable_pipeline", []), ("overload_degradation", []),
+            ("ycsb_serve", []),
+            ("train_lm", ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                          "--ckpt", EXAMPLE_CKPT]),
+            ("distributed_index", []))
+    total = {name: 0 for name in launch_counts()}
+    out = {}
+    try:
+        for name, extra in runs:
+            mod = load_example(name)
+            reset_launches()
+            t0 = time.perf_counter()
+            out[name] = mod.main(["--device", DEVICE] + extra)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            log(f"[examples] {name} on the card in "
+                f"{time.perf_counter() - t0:.3f} s; kernel launches {counts}")
+            for k, v in counts.items():
+                total[k] += v
+            out[name + ":launches"] = counts
+    finally:
+        shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    got = out["quickstart"]
+    assert got == want, ("quickstart: card and CPU differ", got, want)
+    log(f"[examples] quickstart's results on the card equal the CPU's bit "
+        f"for bit: {got}")
+    # the kernels each example reaches (ROADMAP B)
+    for name in ("quickstart", "open_loop_pipeline", "durable_pipeline",
+                 "overload_degradation", "ycsb_serve", "distributed_index"):
+        c = out[name + ":launches"]
+        assert c["pi_probe"] >= 1 and c["bitonic_sort"] >= 1, (name, c)
+    assert out["quickstart:launches"]["pi_range"] >= 1
+    assert out["train_lm:launches"]["flash_attention_fwd"] >= \
+        EXAMPLE_TRAIN_STEPS
+    assert out["distributed_index:launches"]["pi_probe"] >= SHARDS * 8
+    assert out["durable_pipeline"]["same"]
+    assert sorted(out["ycsb_serve"]["done"]) == list(range(1000, 1010))
+    log(f"[examples] every example's checks hold; the seven in "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# [roofline]: the census of the LM phases' steps, priced at the H100's rates
+# ---------------------------------------------------------------------------
+
+def lm_cells(lm, peaks, cells=None):
+    """Adds an ``[lm*]`` phase's prefill and decode step to ``[roofline]``'s
+    cells (their measured host and device times) and the prefill's peak to
+    ``peaks``; returns (cells, peaks)."""
+    cells = [] if cells is None else cells
+    cfg = lm["cfg"]
+    tag = LM_TAGS[cfg.family]
+    cells.append((tag, cfg, "prefill", PREFILL_B, PREFILL_S, lm["t_prefill"],
+                  lm["split_prefill"][0] / 1e3))
+    cells.append((tag, cfg, "decode", PREFILL_B, PREFILL_S,
+                  float(np.percentile(lm["steps"], 50)) / 1e3,
+                  lm["split_decode"][0] / 1e3))
+    peaks[(tag, "prefill")] = lm["prefill_peak"]
+    return cells, peaks
+
+
+def train_cell(tag, full, cells, peaks):
+    """Adds a ``[train*]`` phase's step (its p50) and peak."""
+    cells.append((tag, full["cfg"], "train", TRAIN_B, TRAIN_S,
+                  full["p50"] / 1e3, None))
+    peaks[(tag, "train")] = full["step_peak"]
+
+
+def step_census(cfg, kind, B, S):
+    """The census of one step of ``cfg`` as an LM phase ran it on the card
+    (``kind``: "prefill" of B x S tokens into a cache of S +
+    ``DECODE_STEPS``, "decode" of B tokens over that cache, "train" on B x
+    S tokens with ``train_opt()``), on ``meta`` tensors."""
+    from repro_torch import optim
+    from repro_torch.models import (abstract_params, cast_floats,
+                                    make_decode_step, make_prefill_step,
+                                    make_train_step, model_layout)
+    from repro_torch.models import decode as dec
+    from repro_torch.roofline import census
+    params = abstract_params(model_layout(cfg), cfg.param_dtype)
+
+    def toks(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    if kind == "train":
+        opt = train_opt()
+        args = (params, optim.init(opt, params),
+                {"tokens": toks(B, S), "labels": toks(B, S)})
+        return census.analyze(make_train_step(cfg, opt), *args)
+    params = cast_floats(params, cfg.compute_dtype)
+    T = S + DECODE_STEPS
+    if kind == "prefill":
+        return census.analyze(make_prefill_step(cfg, total_len=T), params,
+                              {"tokens": toks(B, S)})
+    cache = dec.init_cache(cfg, B, T, device="meta")
+    return census.analyze(make_decode_step(cfg), params, {
+        "cache": cache, "tokens": toks(B, 1), "idx": T - 1})
+
+
+def run_roofline(cells, peaks):
+    """``[roofline]``, on the host: the census of each step an LM phase
+    timed (``cells``: (tag, cfg, kind, B, S, measured seconds, device
+    seconds or None)), its roofline at the H100's rates
+    (``repro_torch.roofline.model``), MFU and share (roofline time over
+    measured time, which must not pass ``ROOFLINE_SHARE_MAX``); the
+    census's peak bytes beside ``max_memory_allocated`` (``peaks``: (tag,
+    kind) → the step's own peak on the card, its arguments' bytes
+    included), within ``PEAK_TOL`` either way for ``PEAK_CHECKED``; then
+    the production dry-run cell ``ROOFLINE_CELL`` over a fake 256-rank
+    mesh.  Returns the shares and the cell's result."""
+    import torch.distributed as tdist
+    from repro_torch.roofline.model import model_flops_for, roofline
+    t_phase = time.perf_counter()
+    shares = {}
+    for tag, cfg, kind, B, S, measured, device_s in cells:
+        t0 = time.perf_counter()
+        st = step_census(cfg, kind, B, S)
+        seq = 1 if kind == "decode" else S
+        mf = model_flops_for(cfg, kind, S, B)
+        rl = roofline(st.dot_flops, st.traffic_bytes_fused,
+                      st.collective_bytes, 1, mf)
+        share = rl.step_time_s / measured
+        shares[(tag, kind)] = share
+        dev = "" if device_s is None else \
+            f", {rl.step_time_s / device_s:.4f} of its device time " \
+            f"{1e3 * device_s:.6f} ms"
+        log(f"[roofline] {tag} {kind} {B} x {seq}: {st.dot_flops:.6e} "
+            f"FLOPs, {st.traffic_bytes:.6e} bytes, peak "
+            f"{st.peak_bytes / 2**30:.3f} GiB (arguments "
+            f"{st.argument_bytes / 2**30:.3f}); roofline compute "
+            f"{1e3 * rl.compute_s:.6f} ms, memory {1e3 * rl.memory_s:.6f} "
+            f"ms, step {1e3 * rl.step_time_s:.6f} ms ({rl.bottleneck}), MFU "
+            f"{rl.mfu:.6f} at the roofline, "
+            f"{mf / (measured * BF16_OPS_PER_S):.6f} measured; measured "
+            f"{1e3 * measured:.6f} ms: share {share:.4f}{dev} "
+            f"(census {time.perf_counter() - t0:.3f} s)")
+        if (tag, kind) in peaks:
+            got = peaks[(tag, kind)]
+            ratio = st.peak_bytes / got
+            log(f"[roofline] {tag} {kind} peak: census "
+                f"{st.peak_bytes / 2**30:.3f} GiB, max_memory_allocated "
+                f"{got / 2**30:.3f} GiB (the step's own, its arguments "
+                f"included): {ratio:.4f}")
+            if (tag, kind) in PEAK_CHECKED:
+                assert abs(ratio - 1) <= PEAK_TOL, (tag, kind, ratio)
+        assert share <= ROOFLINE_SHARE_MAX, (tag, kind, share)
+    assert all(key in shares and key in peaks for key in PEAK_CHECKED), \
+        (list(shares), list(peaks))
+    t0 = time.perf_counter()
+    if tdist.is_initialized():
+        raise RuntimeError("[roofline] the dry run needs this process "
+                           "without a process group")
+    from repro_torch.launch import dryrun
+    try:
+        res = dryrun.lower_cell(*ROOFLINE_CELL)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    assert res["status"] == "ok", res
+    rl = res["roofline"]
+    log(f"[roofline] dry run {'/'.join(ROOFLINE_CELL)} ({res['chips']} "
+        f"ranks, rank 0 counted on meta): {res['hlo']['dot_flops']:.6e} "
+        f"FLOPs, {res['hlo']['traffic_bytes']:.6e} bytes, collectives "
+        f"{res['hlo']['collective_bytes_by_kind']}; arguments "
+        f"{res['memory']['argument_bytes'] / 2**30:.3f} GiB, peak "
+        f"{res['hlo']['peak_bytes'] / 2**30:.3f} GiB a card; roofline "
+        f"compute {rl['compute_s']:.6f} s, memory {rl['memory_s']:.6f} s, "
+        f"collective {rl['collective_s']:.6f} s: {rl['bottleneck']}-bound "
+        f"at {rl['step_time_s']:.6f} s, MFU {rl['mfu']:.6f} (in "
+        f"{time.perf_counter() - t0:.3f} s)")
+    log(f"[roofline] the phase in {time.perf_counter() - t_phase:.3f} s")
+    return shares, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
@@ -4452,6 +4708,7 @@ def main(argv=None) -> int:
 
     # -- 9. the LM path: prefill and decode at full width ------------------
     lm = run_lm(LM_ARCH)
+    roof_cells, roof_peaks = lm_cells(lm, {})
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 10. the LM server --------------------------------------------------
@@ -4463,6 +4720,7 @@ def main(argv=None) -> int:
     # -- 11. training: the flash kernel under autograd, phi3-mini steps ----
     train_launches, train_out = run_train(params32, args.profile, 3)
     del params32
+    train_cell("[train]", train_out["full"], roof_cells, roof_peaks)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 11b. the LM across ranks ------------------------------------------
@@ -4471,6 +4729,7 @@ def main(argv=None) -> int:
 
     # -- 12. the moe family: granite-moe-3b-a800m served ------------------
     lm = run_lm(MOE_ARCH)
+    lm_cells(lm, roof_peaks, roof_cells)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     serve_moe_launches = run_serve_lm(lm["cfg"], lm["params"],
                                       "[serve:lm:moe]")
@@ -4479,7 +4738,8 @@ def main(argv=None) -> int:
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 13. ... and trained ------------------------------------------------
-    train_moe_launches, _ = run_train_moe(params32, args.profile)
+    train_moe_launches, out = run_train_moe(params32, args.profile)
+    train_cell("[train:moe]", out["full"], roof_cells, roof_peaks)
     del params32
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
@@ -4489,18 +4749,21 @@ def main(argv=None) -> int:
 
     # -- 15. the ssm family: mamba2-2.7b served and trained ----------------
     lm = run_lm(SSM_ARCH)
+    lm_cells(lm, roof_peaks, roof_cells)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     serve_ssm_launches = run_serve_lm(lm["cfg"], lm["params"],
                                       "[serve:lm:ssm]")
     ssm_launches, params32 = lm["launches"], lm["params32"]
     del lm
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
-    train_ssm_launches, _ = run_train_ssm(params32, args.profile)
+    train_ssm_launches, out = run_train_ssm(params32, args.profile)
+    train_cell("[train:ssm]", out["full"], roof_cells, roof_peaks)
     del params32
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
     # -- 16. the griffin family: recurrentgemma-9b served and trained ------
     lm = run_lm(GRIFFIN_ARCH)
+    lm_cells(lm, roof_peaks, roof_cells)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
     smoke_card_vs_cpu(griffin_smoke_config(), "[lm:griffin]",
                       SMOKE_S[GRIFFIN_ARCH])
@@ -4509,11 +4772,20 @@ def main(argv=None) -> int:
     griffin_launches, params32 = lm["launches"], lm["params32"]
     del lm
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
-    train_griffin_launches, _ = run_train_griffin(params32, args.profile)
+    train_griffin_launches, out = run_train_griffin(params32, args.profile)
     del params32
+    train_cell("[train:griffin]", out, roof_cells, roof_peaks)
     log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
 
-    # -- 17. launch counts ------------------------------------------------
+    # -- 17. the seven examples on the card --------------------------------
+    examples_launches = run_examples()
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 18. the roofline: the census of the LM phases' steps --------------
+    run_roofline(roof_cells, roof_peaks)
+    log(f"[time] {time.perf_counter() - t_start:.3f} s since the start")
+
+    # -- 19. launch counts ------------------------------------------------
     assert launches["pi_probe"] >= WINDOWS, launches
     assert launches["bitonic_sort"] == WINDOWS, launches
     assert launches["pi_search"] >= 1, launches
@@ -4542,7 +4814,7 @@ def main(argv=None) -> int:
              train_launches, mesh_train_launches, moe_launches, serve_moe_launches,
              train_moe_launches, ssm_launches, serve_ssm_launches,
              train_ssm_launches, griffin_launches, serve_griffin_launches,
-             train_griffin_launches)
+             train_griffin_launches, examples_launches)
 
     def total(name):
         return sum(p[name] for p in paths)

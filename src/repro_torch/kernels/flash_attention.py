@@ -19,8 +19,10 @@ dtype.  Masked scores get ``-1e30`` added, not ``-inf``.
 
 ``flash_attention_fwd`` routes by the device of its tensors: on the CPU it
 runs ``flash_attention_fwd_plain`` (the chunked online softmax in
-PyTorch, the port's counterpart of Pallas interpret mode); on the card it
-launches ``csrc/flash_attention.cu`` or raises.  The route there is fixed
+PyTorch, the port's counterpart of Pallas interpret mode); elsewhere it
+calls the operator ``repro_torch::flash_attention_fwd``, which on the
+card launches ``csrc/flash_attention.cu`` or raises, and on ``meta``
+tensors (the dry run's) only makes its result.  The route there is fixed
 by dtype:
 
 * bfloat16 (the model's prefill): ``flash_fwd_kernel``, a Hopper kernel
@@ -269,6 +271,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_fwd: q, k, v on different devices")
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, bool(causal), window, softcap)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: Optional[int],
+                        softcap: Optional[float]) -> torch.Tensor:
+    """The kernel's launch, as one operator: a dispatch mode (the
+    census of ``roofline.census``) sees it whole, and on ``meta`` tensors
+    it runs its fake implementation, which allocates the result only."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -284,6 +300,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on("flash_attention_fwd", rc)
     LAUNCHES["flash_attention_fwd"] += 1
     return out
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, softcap):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
 def flash_hbm_bytes(B, Sq, Sk, H, KV, D, Dv, itemsize=2) -> int:

@@ -15,6 +15,9 @@ group is created with ``timeout``, so that a rank that diverges fails its
 peers' next collective instead of hanging them.  The caller names the
 device type: nothing here picks the CPU when it finds no card.
 
+The ``fake`` backend (``init_fake_world``) takes no timeout: the dry run
+(``launch.dryrun``) runs one rank's program over it, without a peer.
+
 ``gloo`` ranks that share a card (NCCL refuses two ranks on one GPU)
 take CUDA tensors in c10d's collectives, copied through the host inside
 ``gloo``, but its functional ``all_gather_into_tensor`` on CUDA tensors
@@ -63,12 +66,15 @@ def _stage_functional_collectives():
 
 
 def _options(backend: str, timeout: datetime.timedelta):
+    if backend == "fake":
+        return None
     if backend == "nccl":
         opts = tdist.ProcessGroupNCCL.Options()
     elif backend == "gloo":
         opts = tdist.ProcessGroupGloo._Options()
     else:
-        raise ValueError(f"backend {backend!r}: the mesh takes nccl or gloo")
+        raise ValueError(f"backend {backend!r}: the mesh takes nccl, gloo "
+                         f"or fake")
     opts._timeout = timeout
     return opts
 
@@ -91,9 +97,36 @@ def make_mesh(shape, axis_names, *, device_type: str,
     backend = tdist.get_backend()
     if backend == "gloo" and device_type == "cuda":
         _stage_functional_collectives()
-    opts = (backend, _options(backend, timeout))
+    opts = _options(backend, timeout)
+    override = None if opts is None else \
+        {a: (backend, opts) for a in axis_names}
     return init_device_mesh(device_type, shape, mesh_dim_names=axis_names,
-                            backend_override={a: opts for a in axis_names})
+                            backend_override=override)
+
+
+def init_fake_world(world_size: int) -> None:
+    """This process as rank 0 of a fake process group of
+    ``world_size`` ranks (``torch.testing``'s ``FakeProcessGroup``): every
+    collective returns at once without moving data, so that one process
+    can run one rank's program on a mesh of any size (the dry run's, on
+    ``meta`` tensors).  A process group already initialized must be a
+    fake one of that size."""
+    if tdist.is_initialized():
+        if tdist.get_backend() != "fake" or \
+                tdist.get_world_size() != world_size:
+            raise RuntimeError(
+                f"a {tdist.get_backend()} process group of "
+                f"{tdist.get_world_size()} ranks is initialized; the dry "
+                f"run needs a fake one of {world_size}")
+        return
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise ImportError(
+            "the fake process group needs the module "
+            "torch.testing._internal.distributed.fake_pg") from e
+    tdist.init_process_group("fake", store=FakeStore(), rank=0,
+                             world_size=world_size)
 
 
 def make_production_mesh(*, multi_pod: bool = False,
