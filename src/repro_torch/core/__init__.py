@@ -15,7 +15,8 @@ Public surface:
 from repro_torch.core.batch import SEARCH, INSERT, DELETE, RANGE
 from repro_torch.core.engine import BACKENDS, Probe, SearchEngine, get_engine
 from repro_torch.core.index import (
-    PIConfig, PIIndex, build, empty, execute, execute_impl, flat_leaves,
+    PIConfig, PIIndex, build, empty, execute, execute_impl,
+    execute_launch_count, flat_leaves,
     from_flat_leaves, from_numpy_leaves, incremental_fits, leaf_spec,
     live_items, lookup, traverse, range_agg, rebuild, rebuild_tier,
     maybe_rebuild, needs_rebuild, repack,
@@ -36,7 +37,8 @@ from repro_torch.core.ref import RefIndex
 
 __all__ = [
     "SEARCH", "INSERT", "DELETE", "RANGE", "PIConfig", "PIIndex", "build",
-    "empty", "execute", "execute_impl", "flat_leaves", "from_flat_leaves",
+    "empty", "execute", "execute_impl", "execute_launch_count",
+    "flat_leaves", "from_flat_leaves",
     "from_numpy_leaves", "incremental_fits", "leaf_spec", "live_items",
     "lookup", "traverse", "range_agg",
     "rebuild",

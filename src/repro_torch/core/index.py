@@ -40,6 +40,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.core.batch import (SEARCH, INSERT, DELETE,
                                     seg_last_write_scan)
 from repro_torch.core.engine import BACKENDS, get_engine
@@ -415,6 +416,21 @@ def lookup(index: PIIndex, q: torch.Tensor):
 # batch execution (Alg. 1 = partition→traverse→redistribute→execute)
 # ---------------------------------------------------------------------------
 
+# Bumped once per ``execute_impl`` on the ``cuda`` backend: the window's
+# one pass through the kernels (one ``pi_probe``, one ``bitonic_sort``
+# call).  Where the JAX package expects one trace of ``execute_impl`` a
+# serving run, the port expects one of these a window; suites and the
+# smoke run assert it through the guard's canonical message
+# (analysis/runtime.py; deltas via execute_launch_count()).
+_LAUNCHES = launch_guard("core.execute")
+
+
+def execute_launch_count() -> int:
+    """Executes run through the kernels so far: the counterpart of the
+    JAX package's ``execute_trace_count``, one a window, not one a run."""
+    return _LAUNCHES.count()
+
+
 def execute_impl(index: PIIndex, ops: torch.Tensor, qkeys: torch.Tensor,
                  qvals: torch.Tensor):
     """Execute one query batch; returns (new_index, (found, vals)).
@@ -434,8 +450,10 @@ def execute_impl(index: PIIndex, ops: torch.Tensor, qkeys: torch.Tensor,
     qkeys = torch.as_tensor(qkeys).to(device=dev, dtype=kdt)
     qvals = torch.as_tensor(qvals).to(device=dev, dtype=_I32)
 
-    perm, s_ops, s_keys, s_vals = get_engine(cfg).sort_queries(
-        ops, qkeys, qvals)
+    engine = get_engine(cfg)
+    if engine.backend == "cuda":
+        _LAUNCHES.bump()
+    perm, s_ops, s_keys, s_vals = engine.sort_queries(ops, qkeys, qvals)
     newseg = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                         s_keys[1:] != s_keys[:-1]])
     is_write = s_ops != SEARCH

@@ -27,10 +27,11 @@ On the card a batch of up to 2^13 pairs sorts in one block, padded to the
 smallest tile of ``SINGLE_TILES`` that holds it; a larger one runs the
 passes of ``pass_plan``, the one place that decides the launches (see the
 ``.cu`` header for the design).  NaN keys are out of scope, as in the JAX
-tests, and so is the sign of a zero float key.  ``LAUNCHES`` counts the
-wrapper calls that launched the kernel: one C call, which enqueues one
-launch up to 2^13 pairs and ``len(pass_plan(...))`` above; CPU calls and
-batches of one key never count.
+tests, and so is the sign of a zero float key.  The guard
+``launch_guard("bitonic_sort")`` counts the wrapper calls that launched
+the kernel: one C call, which enqueues one launch up to 2^13 pairs and
+``len(pass_plan(...))`` above; CPU calls and batches of one key never
+count.
 """
 from __future__ import annotations
 
@@ -39,10 +40,11 @@ import functools
 
 import torch
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.pi_search import _raise_on, sentinel_for
 
-LAUNCHES = {"bitonic_sort": 0}
+_LAUNCHES = launch_guard("bitonic_sort")
 
 _KEY_DTYPES = (torch.int32, torch.float32)
 
@@ -54,11 +56,6 @@ SMS = 132                    # H100 SXM: the first pass gives each SM a block
 # log2 of the pairs a thread holds, by tile (scripts/bitonic_study.py):
 # 2^9 in 128 threads, 2^11 in 256, 2^12 and 2^13 in 256 and 512
 LOG_R = {9: 2, 11: 3, 12: 4, 13: 4}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _log2_exact(B: int) -> int:
@@ -201,7 +198,7 @@ def _launch(entry: str, keys: torch.Tensor, *args) -> None:
                 None if scratch is None else scratch.data_ptr(), n, log_n,
                 int(keys.dtype == torch.float32), plan, n_passes, stream)
     _raise_on(entry, rc)
-    LAUNCHES["bitonic_sort"] += 1
+    _LAUNCHES.bump()
 
 
 def _check_card_keys(name: str, keys: torch.Tensor) -> None:

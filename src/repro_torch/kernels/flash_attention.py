@@ -57,7 +57,8 @@ own tiling now, not arguments that must divide S), and take head dims
 16, 32, 64, 96, 128 and 256.  Their inputs are made contiguous once by
 the wrapper (a no-op for the model's projections, which are), and a
 tensor whose base is not 16-byte aligned (TMA's rule) is copied.
-``LAUNCHES`` counts the wrapper's kernel launches; CPU calls never count.
+``launch_guard("flash_attention_fwd")`` counts the wrapper's kernel
+launches; CPU calls never count.
 """
 from __future__ import annotations
 
@@ -68,10 +69,11 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.pi_search import _raise_on
 
-LAUNCHES = {"flash_attention_fwd": 0}
+_LAUNCHES = launch_guard("flash_attention_fwd")
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _MASK = -1e30
@@ -84,11 +86,6 @@ _ENTRY = {torch.bfloat16: "flash_fwd_bf16", torch.float32: "flash_fwd_f32"}
 # then; in float32 by the summation order.  chip_smoke.py prints the
 # share of these limits that each of its cases uses on the card.
 CARD_TOL = {torch.bfloat16: (1e-3, 2.0 ** -6), torch.float32: (1e-5, 0.0)}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def kv_tile(head_dim: int, dtype: torch.dtype) -> int:
@@ -298,7 +295,7 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int(window or 0), ctypes.c_float(float(softcap or 0.0)),
                 ctypes.c_float(scale), stream)
     _raise_on("flash_attention_fwd", rc)
-    LAUNCHES["flash_attention_fwd"] += 1
+    _LAUNCHES.bump()
     return out
 
 

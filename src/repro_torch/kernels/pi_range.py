@@ -25,8 +25,8 @@ a ``RANGE_GROUP``-ary search (``group_bounds_plain`` is its model).
 ``pi_range`` routes by the device of its tensors: a CPU tensor runs
 ``pi_range_plain`` (the port's counterpart of Pallas interpret mode); a
 CUDA tensor launches the kernel or raises.  Sums wrap modulo 2^32, as the
-int32 sums of the JAX package do.  ``LAUNCHES`` counts kernel launches
-(CPU calls never count).
+int32 sums of the JAX package do.  ``launch_guard("pi_range")``
+counts kernel launches (CPU calls never count).
 """
 from __future__ import annotations
 
@@ -34,19 +34,15 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.pi_search import (_check_launch_args, _descend,
                                            _level_args, _raise_on,
                                            derive_levels, gather_fill,
                                            group_bounds_plain, sentinel_for)
 
-LAUNCHES = {"pi_range": 0}
+_LAUNCHES = launch_guard("pi_range")
 RANGE_GROUP = 32   # lanes a query: PI_RANGE_GROUP of csrc/pi_range.cu
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -190,5 +186,5 @@ def pi_range(storage: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
             lo.data_ptr(), hi.data_ptr(), B, fanout, max_span,
             cnt.data_ptr(), sm.data_ptr(), stream)
     _raise_on("pi_range", rc)
-    LAUNCHES["pi_range"] += 1
+    _LAUNCHES.bump()
     return cnt, sm

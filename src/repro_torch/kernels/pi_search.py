@@ -29,8 +29,10 @@ array reads as the sentinel, which is exactly what the padding held.  The
 plain versions follow the same arithmetic, so kernel and plain version
 agree bit for bit, and both agree with the JAX kernels.
 
-``LAUNCHES`` counts kernel launches per wrapper (CPU calls never count),
-so a run can show that its main path went through the kernels.
+Each wrapper bumps its launch guard (``launch_guard("pi_search")``,
+``launch_guard("pi_probe")``, ``analysis/runtime.py``) where it launches
+its kernel (CPU calls never count), so a run can show that its main path
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.kernels.build import load_library
 
 FLAG_MAIN_MATCH = 1    # storage key at the floor position equals the query
@@ -48,12 +51,8 @@ FLAG_PENDING_HIT = 2   # pending key at the insertion point equals the query
 MAX_LEVELS = 32        # PI_MAX_LEVELS in csrc/pi_descend.cuh
 PROBE_GROUP = 8        # lanes a query: PI_PROBE_GROUP of csrc/pi_search.cu
 
-LAUNCHES = {"pi_search": 0, "pi_probe": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+_SEARCH_LAUNCHES = launch_guard("pi_search")
+_PROBE_LAUNCHES = launch_guard("pi_probe")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -296,7 +295,7 @@ def pi_search(storage: torch.Tensor, queries: torch.Tensor, *,
         rc = fn(ptrs, lens, n_levels, storage.data_ptr(), storage.shape[0],
                 q.data_ptr(), q.shape[0], fanout, out.data_ptr(), stream)
     _raise_on("pi_search", rc)
-    LAUNCHES["pi_search"] += 1
+    _SEARCH_LAUNCHES.bump()
     return out
 
 
@@ -339,5 +338,5 @@ def pi_probe(storage: torch.Tensor, pending: torch.Tensor,
                 pending.data_ptr(), pending.shape[0], q.data_ptr(),
                 q.shape[0], fanout, *(o.data_ptr() for o in outs), stream)
     _raise_on("pi_probe", rc)
-    LAUNCHES["pi_probe"] += 1
+    _PROBE_LAUNCHES.bump()
     return tuple(outs)

@@ -157,7 +157,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, idx):
     else:
         x = embed_tokens(cfg, params, tokens)
     B = x.shape[0]
-    idx = int(idx)
+    # the position as a host int: a sync when it is a device scalar, the
+    # decode step's host cost (ROADMAP performance note 7)
+    idx = int(idx)  # pilint: disable=PI002 — ROADMAP note 7
     positions = torch.full((B, 1), idx, dtype=torch.int32,
                            device=shd.local(x).device)
     x = add_positions(cfg, x, positions)

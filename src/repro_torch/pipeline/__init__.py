@@ -43,7 +43,9 @@ from repro_torch.pipeline.overload import (
     OverloadController, ReadOnlyModeError, RunReport, SHED_RANGE,
     SHED_RANGE_SUB, SHED_SEARCH, SHED_SEARCH_DUP, SHED_WRITE,
 )
-from repro_torch.pipeline.ranges import execute_ranges, execute_ranges_sharded
+from repro_torch.pipeline.ranges import (
+    execute_ranges, execute_ranges_sharded, range_launch_count,
+)
 from repro_torch.pipeline.recovery import Durability, RecoveryError, recover
 from repro_torch.pipeline.wal import (
     FSYNC_POLICIES, WalCorruptionError, WalRecord, WalWriter, read_wal,
@@ -68,7 +70,7 @@ __all__ = [
     "SHED_RANGE_SUB", "SHED_SEARCH_DUP", "SHED_RANGE", "SHED_SEARCH",
     "SHED_WRITE",
     "LatencyHistogram", "PipelineMetrics",
-    "execute_ranges", "execute_ranges_sharded",
+    "execute_ranges", "execute_ranges_sharded", "range_launch_count",
     "Durability", "RecoveryError", "recover",
     "FSYNC_POLICIES", "WalCorruptionError", "WalRecord", "WalWriter",
     "read_wal", "record_window",

@@ -126,7 +126,9 @@ def step_single(index: pi.PIIndex, ops, keys, vals):
     pn = new_index.pn  # fill high-water: post-rebuild pn is ~always zero
     due = pi.needs_rebuild(new_index)
     incr = False
-    if bool(due):
+    # the one host read of a window: which rebuild, if any (ROADMAP
+    # performance note 3; a CUDA graph of the window would remove it)
+    if bool(due):  # pilint: disable=PI002 — ROADMAP note 3
         new_index, incr = pi.rebuild_tier(new_index)
     incr = torch.tensor(incr, device=new_index.device)
     return new_index, found, val, ovf, due, incr, pn

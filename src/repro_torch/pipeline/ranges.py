@@ -15,9 +15,10 @@ and flows through the same collect → dispatch stages as point ops:
   batch: the ``cuda`` backend launches ``kernels.pi_range`` once.
   Non-range lanes are neutralized to ``lo = sentinel, hi = 0`` — inert by
   construction.  Eager PyTorch compiles nothing, so where the JAX package
-  counts traces of this function the port counts kernel launches:
-  ``kernels.pi_range.LAUNCHES["pi_range"]`` rises by one per
-  range-bearing window (S per window on a sharded index).
+  counts traces of this function the port counts launches:
+  ``range_launch_count()`` (and ``launch_guard("pi_range")`` on the card)
+  rises by one per range-bearing window (S per window on a sharded
+  index).
 * **sharding** — a range spanning several shards fans out per-shard
   clipped subranges ``[max(lo, fence_s), min(hi, fence_{s+1} - 1)]`` and
   sums the ``(count, sum)`` partials; shards own disjoint key intervals,
@@ -29,11 +30,33 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.core.batch import RANGE
 from repro_torch.core.distributed import shard_of
 from repro_torch.core.engine import get_engine
 from repro_torch.kernels.pi_search import sentinel_for
 from repro_torch.sharding import group_all_gather
+
+
+# Bumped once per ``range_agg`` a window runs on the ``cuda`` backend:
+# one a range-bearing window on one shard, one a local shard on a
+# sharded index.  The JAX package's ``range_trace_count`` expects one
+# trace a run; the port expects these once a window (analysis/runtime.py;
+# deltas via range_launch_count()).
+_LAUNCHES = launch_guard("pipeline.ranges")
+
+
+def range_launch_count() -> int:
+    """Range aggregations run through the kernel so far: the counterpart
+    of the JAX package's ``range_trace_count``."""
+    return _LAUNCHES.count()
+
+
+def _range_agg(index, lo, hi, max_span: int):
+    engine = get_engine(index.config)
+    if engine.backend == "cuda":
+        _LAUNCHES.bump()
+    return engine.range_agg(index, lo, hi, max_span)
 
 
 def _range_lanes(ops, keys, keys2, kdt):
@@ -58,7 +81,7 @@ def execute_ranges(index, ops, keys, keys2, max_span: int):
     """
     lo, hi = _range_lanes(*_on(index.device, ops, keys, keys2),
                           index.keys.dtype)
-    return get_engine(index.config).range_agg(index, lo, hi, max_span)
+    return _range_agg(index, lo, hi, max_span)
 
 
 def execute_ranges_sharded(state, ops, keys, keys2, max_span: int):
@@ -86,8 +109,7 @@ def execute_ranges_sharded(state, ops, keys, keys2, max_span: int):
         shard = shard_of(state.shards, j)
         slo = torch.maximum(lo, fences[s])
         shi = torch.minimum(hi, fences[s + 1] - 1)
-        parts.append(get_engine(shard.config).range_agg(shard, slo, shi,
-                                                        max_span))
+        parts.append(_range_agg(shard, slo, shi, max_span))
     if state.group is not None:                          # (S, 2, batch)
         parts = group_all_gather(torch.stack([torch.stack(q) for q in parts]),
                                  state.group).flatten(0, 1)

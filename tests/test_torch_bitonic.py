@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import launch_guard
 from repro_torch.core import engine as tengine
 from repro_torch.core import index as tpi
 from repro_torch.core.batch import DELETE, INSERT, SEARCH
@@ -108,10 +109,10 @@ def test_bitonic_refuses_other_batch_sizes(B):
 
 
 def test_bitonic_cpu_calls_launch_nothing(rng):
-    BS.reset_launch_counts()
+    base = launch_guard("bitonic_sort").count()
     k = t(rng.integers(0, 9, 64).astype(np.int32))
     BS.bitonic_sort(k, torch.arange(64, dtype=torch.int32))
-    assert BS.LAUNCHES == {"bitonic_sort": 0}
+    launch_guard("bitonic_sort").expect(base, 0, "a CPU sort")
 
 
 def test_pi_search_ref_matches_jax(rng, jx):
@@ -228,7 +229,7 @@ def test_bitonic_matches_plain_on_card(rng):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on one")
     dev = "cuda"
-    BS.reset_launch_counts()
+    base = launch_guard("bitonic_sort").count()
     cases = 0
     for B, dt in [(2, np.int32), (8192, np.int32), (8192, np.float32),
                   (1 << 15, np.int32), (1 << 17, np.float32)]:
@@ -238,7 +239,7 @@ def test_bitonic_matches_plain_on_card(rng):
         want = BS.bitonic_sort_plain(k, v)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (B, dt)
         cases += 1
-    assert BS.LAUNCHES == {"bitonic_sort": cases}
+    launch_guard("bitonic_sort").expect(base, cases, "one sort a case")
     keys = t(rng.integers(0, 2000, 8000).astype(np.int32)).to(dev)
     keys[::7] = sentinel_for(torch.int32)
     ops = torch.zeros(8000, dtype=torch.int32, device=dev)

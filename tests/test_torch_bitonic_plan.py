@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bitonic_sort as BS
+from torch_parity import one_thread  # noqa: F401  (autouse)
 
 I32 = np.iinfo(np.int32)
 # log2 B 1..16 split across this file and test_torch_bitonic_plan_b.py
@@ -26,17 +27,6 @@ I32 = np.iinfo(np.int32)
 LOG_NS = (16, 13, 12, 10, 5, 3)
 LOG_TILES = range(2, 7)
 _JAX_SORTED = {}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The plain executor's ops are small: on one thread.  Intra-op
-    threads spinning in two of these files at once, and beside the
-    suite's other workers, cost several times their work."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def variants(log_tile):

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import launch_guard
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.transformer import flash_attention
@@ -156,10 +157,10 @@ def test_flash_wrapper_checks_and_cpu_count(rng):
                qkv(rng, 1, 64, 64, 4, 2, 16, np.float32))
     with pytest.raises(ValueError, match="window"):
         FA.flash_attention_fwd(q, k, v, window=0)
-    FA.reset_launch_counts()
+    base = launch_guard("flash_attention_fwd").count()
     FA.flash_attention_fwd(q, k, v)
-    assert FA.LAUNCHES == {"flash_attention_fwd": 0}, \
-        "a CPU call ran the plain version and launched nothing"
+    launch_guard("flash_attention_fwd").expect(
+        base, 0, "a CPU call, which runs the plain version")
 
 
 @pytest.mark.parametrize("case", ["other order", "dropped tail",
@@ -279,10 +280,10 @@ def test_flash_function_gradient(jx, rng, dt, B, S, H, KV, D, causal,
         .to(TORCH_DT[dt])
     opts = dict(causal=causal, window=window, softcap=cap)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    FA.reset_launch_counts()
+    base = launch_guard("flash_attention_fwd").count()
     out = FA.FlashAttention.apply(*leaves, causal, window, cap)
     assert torch.equal(out, FA.flash_attention_fwd(q, k, v, **opts))
-    assert FA.LAUNCHES["flash_attention_fwd"] == 0
+    launch_guard("flash_attention_fwd").expect(base, 0, "CPU calls")
     got = torch.autograd.grad(out, leaves, g)
     _, want = plain_grads(q, k, v, g, **opts)
     for a, b in zip(got, want):
@@ -329,7 +330,7 @@ def test_flash_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on one")
     g = torch.Generator(device="cuda").manual_seed(0)
-    FA.reset_launch_counts()
+    base = launch_guard("flash_attention_fwd").count()
     bf = torch.bfloat16
     f32 = torch.float32
     cases = [((2, 128, 4, 2, 32), f32, True, None, None),
@@ -391,7 +392,8 @@ def test_flash_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     e, share = FA.card_error(got, FA.flash_attention_fwd_plain(*views))
     assert share <= 1.0, ("misaligned float32", e, share)
-    assert FA.LAUNCHES == {"flash_attention_fwd": len(cases) + 2}
+    launch_guard("flash_attention_fwd").expect(base, len(cases) + 2,
+                                               "one launch a call")
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(*(torch.zeros(1, 8, 2, 48, device="cuda")
                                  for _ in range(3)))
@@ -409,9 +411,9 @@ def test_flash_function_on_card():
         q, k, v, go = (torch.randn(2, 1100, 8, 96, generator=g,
                                    device="cuda").to(dt) for _ in range(4))
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        FA.reset_launch_counts()
+        base = launch_guard("flash_attention_fwd").count()
         out = FA.FlashAttention.apply(*leaves, True, None, None)
-        assert FA.LAUNCHES["flash_attention_fwd"] == 1
+        launch_guard("flash_attention_fwd").expect(base, 1, "a forward")
         got = torch.autograd.grad(out, leaves, go)
         _, share = FA.card_error(out.detach(),
                                  FA.flash_attention_fwd_plain(q, k, v))

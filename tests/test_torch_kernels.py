@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import launch_guard
 from repro_torch.core import index as tpi
 from repro_torch.kernels import pi_search as K
 
@@ -157,10 +158,11 @@ def test_storage_without_levels_matches_jax(rng, jx, C, fanout):
 def test_cpu_calls_launch_nothing(rng):
     storage = make_storage(rng, 256, np.int32)
     q = t(storage[:40])
-    K.reset_launch_counts()
+    base = {n: launch_guard(n).count() for n in ("pi_search", "pi_probe")}
     K.pi_search(t(storage), q, fanout=4)
     K.pi_probe(t(storage), t(storage[:32].copy()), q, fanout=4)
-    assert K.LAUNCHES == {"pi_search": 0, "pi_probe": 0}
+    for name, b in base.items():
+        launch_guard(name).expect(b, 0, "a CPU call")
 
 
 def test_lower_bound_equals_searchsorted(rng):
@@ -289,7 +291,8 @@ def test_kernels_match_plain_on_card(rng):
         st, pk = tidx.keys.to(dev), tidx.pkeys.to(dev)
         q = t(mixed_queries(rng, np.concatenate([keys, newk]), 517, C * 20,
                             np.int32)).to(dev)
-        K.reset_launch_counts()
+        base = {n: launch_guard(n).count()
+                for n in ("pi_search", "pi_probe")}
         for lanes in (q, torch.sort(q).values):
             got = K.pi_probe(st, pk, lanes, fanout=fanout, levels=lv)
             want = K.pi_probe_plain(st, pk, lanes, fanout=fanout, levels=lv)
@@ -306,6 +309,7 @@ def test_kernels_match_plain_on_card(rng):
             want = K.pi_probe_plain(sf, pf, lanes, fanout=fanout)
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
-        assert K.LAUNCHES == {"pi_search": 4, "pi_probe": 4}
+        for name, b in base.items():
+            launch_guard(name).expect(b, 4, f"C={C} F={fanout}")
     with pytest.raises(TypeError):
         K.pi_probe(st.double(), pk.double(), q.double(), fanout=fanout)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import launch_guard
 from repro_torch.core import index as tpi
 from repro_torch.core.batch import INSERT, RANGE, SEARCH
 from repro_torch.core.engine import range_tables
@@ -215,10 +216,10 @@ def test_cpu_calls_launch_nothing(rng):
     cfg = tpi.PIConfig(capacity=256, pending_capacity=32, fanout=4)
     idx = tpi.build(cfg, np.arange(0, 500, 5, dtype=np.int32),
                     np.arange(100, dtype=np.int32), device="cpu")
-    KR.reset_launch_counts()
+    base = launch_guard("pi_range").count()
     tpi.range_agg(idx, t(np.array([0, 7], np.int32)),
                   t(np.array([100, 3], np.int32)))
-    assert KR.LAUNCHES == {"pi_range": 0}
+    launch_guard("pi_range").expect(base, 0, "a CPU range_agg")
 
 
 def _sorted_pending(rng, n):
@@ -330,7 +331,7 @@ def test_pi_range_matches_plain_on_card(rng):
         args = (idx.keys, live, idx.vals, rank, d2s, idx.pkeys, idx.pvals,
                 plive, lo, hi)
         for max_span in (3, 1024):
-            KR.reset_launch_counts()
+            base = launch_guard("pi_range").count()
             got = KR.pi_range(*args, fanout=fanout, max_span=max_span,
                               levels=idx.levels)
             want = KR.pi_range_plain(*args, fanout=fanout,
@@ -338,6 +339,6 @@ def test_pi_range_matches_plain_on_card(rng):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (C, fanout, max_span)
-            assert KR.LAUNCHES == {"pi_range": 1}
+            launch_guard("pi_range").expect(base, 1, "one pi_range call")
     with pytest.raises(TypeError):
         KR.pi_range(idx.keys.double(), *args[1:], fanout=fanout)

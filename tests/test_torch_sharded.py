@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from conftest import run_with_devices
+from torch_parity import one_thread  # noqa: F401  (autouse)
 from repro import pipeline as jp
 from repro.core import alg3 as jalg3
 from repro.core import distributed as jdist

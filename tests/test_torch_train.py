@@ -42,6 +42,7 @@ import pytest
 import torch
 
 import torch_ranks as R
+from torch_parity import one_thread  # noqa: F401  (autouse)
 from repro import data as jdata
 from repro import optim as jopt
 from repro.configs import get_config as jget_config

@@ -7,6 +7,7 @@ State crosses between the packages as numpy arrays in the leaf order of
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from repro.core import PIConfig as JaxConfig
@@ -15,6 +16,20 @@ from repro_torch.core import index as tpi
 
 LEAF_NAMES = ("keys", "vals", "tomb", "n", "levels", "pkeys", "pvals",
               "ptomb", "pn", "n_updates", "overflow")
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """A module's torch ops on one intra-op thread, for the modules that
+    import this fixture: their ops are small, and every core's threads in
+    each of the suite's workers at once cost several times the work
+    (``test_torch_bitonic_plan.py``'s halves: 1231 s and 1209 s in the
+    suite, ~110 s after; ``test_torch_sharded.py`` and
+    ``test_torch_train.py``: 802.0 s and 771.0 s in the suite)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 # JAX backend -> the port's counterpart
 BACKEND_OF = {"xla": "torch", "pallas-interpret": "cuda"}
