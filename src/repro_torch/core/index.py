@@ -40,6 +40,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.analysis.runtime import launch_guard
 from repro_torch.core.batch import (SEARCH, INSERT, DELETE,
                                     seg_last_write_scan)
@@ -453,65 +454,70 @@ def execute_impl(index: PIIndex, ops: torch.Tensor, qkeys: torch.Tensor,
     engine = get_engine(cfg)
     if engine.backend == "cuda":
         _LAUNCHES.bump()
-    perm, s_ops, s_keys, s_vals = engine.sort_queries(ops, qkeys, qvals)
-    newseg = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
-                        s_keys[1:] != s_keys[:-1]])
-    is_write = s_ops != SEARCH
-    is_del = s_ops == DELETE
-    (inc_has, inc_val, inc_tomb), (exc_has, exc_val, exc_tomb) = (
-        seg_last_write_scan(newseg, is_write, s_vals, is_del))
+    with tracing.span(tracing.EXECUTE_SORT):
+        perm, s_ops, s_keys, s_vals = engine.sort_queries(ops, qkeys, qvals)
+        newseg = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                            s_keys[1:] != s_keys[:-1]])
+        is_write = s_ops != SEARCH
+        is_del = s_ops == DELETE
+        (inc_has, inc_val, inc_tomb), (exc_has, exc_val, exc_tomb) = (
+            seg_last_write_scan(newseg, is_write, s_vals, is_del))
 
     # --- store state per query (pre-batch view, one fused engine probe) ---
-    pos, main_match, main_live, main_val, ppos, p_match, p_live = _probe(
-        index, s_keys)
-    pos_c = pos.clamp_min(0)
-    p_val = index.pvals[ppos.long()]
-    store_found = main_live | p_live
-    store_val = torch.where(p_live, p_val, main_val)
+    with tracing.span(tracing.EXECUTE_PROBE):
+        pos, main_match, main_live, main_val, ppos, p_match, p_live = _probe(
+            index, s_keys)
+        pos_c = pos.clamp_min(0)
+        p_val = index.pvals[ppos.long()]
+        store_found = main_live | p_live
+        store_val = torch.where(p_live, p_val, main_val)
 
-    # --- per-query results (visibility: exclusive scan > store) -----------
-    vis_found = torch.where(exc_has, ~exc_tomb, store_found)
-    vis_val = torch.where(exc_has, exc_val, store_val)
-    is_search = s_ops == SEARCH
-    r_found = torch.where(is_search, vis_found, is_del & vis_found)
-    r_val = torch.where(is_search, torch.where(vis_found, vis_val, 0),
-                        (is_del & vis_found).to(_I32))
+        # --- per-query results (visibility: exclusive scan > store) -------
+        vis_found = torch.where(exc_has, ~exc_tomb, store_found)
+        vis_val = torch.where(exc_has, exc_val, store_val)
+        is_search = s_ops == SEARCH
+        r_found = torch.where(is_search, vis_found, is_del & vis_found)
+        r_val = torch.where(is_search, torch.where(vis_found, vis_val, 0),
+                            (is_del & vis_found).to(_I32))
 
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(B, device=dev)
-    results = (r_found[inv], r_val[inv])
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(B, device=dev)
+        results = (r_found[inv], r_val[inv])
 
     # --- net effects: one writer per key segment (segment tails) ----------
-    seg_end = torch.cat([newseg[1:],
-                         torch.ones((1,), dtype=torch.bool, device=dev)])
-    apply_w = seg_end & inc_has
-    # 1) key already in main storage → in-place update (Alg. 4 lines 11-15)
-    upd_main = apply_w & main_match
-    tgt = torch.where(upd_main, pos_c, cfg.capacity)  # OOB ⇒ dropped
-    vals2 = _set_drop(index.vals, tgt,
-                      torch.where(inc_tomb, main_val, inc_val))
-    tomb2 = _set_drop(index.tomb, tgt, inc_tomb)
-    # 2) key in pending buffer → in-place update there
-    upd_pend = apply_w & ~main_match & p_match
-    ptgt = torch.where(upd_pend, ppos, cfg.pending_capacity)
-    pvals2 = _set_drop(index.pvals, ptgt,
-                       torch.where(inc_tomb, p_val, inc_val))
-    ptomb2 = _set_drop(index.ptomb, ptgt, inc_tomb)
-    # 3) brand-new key, net insert → append to pending (sorted merge)
-    new_ins = apply_w & ~main_match & ~p_match & ~inc_tomb
-    addk = torch.where(new_ins, s_keys, sent)
-    addv = torch.where(new_ins, inc_val, 0)
-    PC = cfg.pending_capacity
-    # hide slots beyond pn so stale tails don't resurrect
-    pidx = torch.arange(PC, device=dev)
-    mk = torch.cat([torch.where(pidx < index.pn, index.pkeys, sent), addk])
-    mv = torch.cat([pvals2, addv])
-    mt = torch.cat([ptomb2, torch.zeros((B,), dtype=torch.bool, device=dev)])
-    order = torch.argsort(mk, stable=True)
-    mk, mv, mt = mk[order], mv[order], mt[order]
-    pn_new = index.pn + new_ins.sum(dtype=_I32)
-    pn2 = pn_new.clamp_max(PC)
-    overflow2 = index.overflow | (pn_new > PC)
+    with tracing.span(tracing.EXECUTE_WRITES):
+        seg_end = torch.cat([newseg[1:],
+                             torch.ones((1,), dtype=torch.bool, device=dev)])
+        apply_w = seg_end & inc_has
+        # 1) key already in main storage → in-place update (Alg. 4 lines 11-15)
+        upd_main = apply_w & main_match
+        tgt = torch.where(upd_main, pos_c, cfg.capacity)  # OOB ⇒ dropped
+        vals2 = _set_drop(index.vals, tgt,
+                          torch.where(inc_tomb, main_val, inc_val))
+        tomb2 = _set_drop(index.tomb, tgt, inc_tomb)
+        # 2) key in pending buffer → in-place update there
+        upd_pend = apply_w & ~main_match & p_match
+        ptgt = torch.where(upd_pend, ppos, cfg.pending_capacity)
+        pvals2 = _set_drop(index.pvals, ptgt,
+                           torch.where(inc_tomb, p_val, inc_val))
+        ptomb2 = _set_drop(index.ptomb, ptgt, inc_tomb)
+    with tracing.span(tracing.EXECUTE_MERGE):
+        # 3) brand-new key, net insert → append to pending (sorted merge)
+        new_ins = apply_w & ~main_match & ~p_match & ~inc_tomb
+        addk = torch.where(new_ins, s_keys, sent)
+        addv = torch.where(new_ins, inc_val, 0)
+        PC = cfg.pending_capacity
+        # hide slots beyond pn so stale tails don't resurrect
+        pidx = torch.arange(PC, device=dev)
+        mk = torch.cat([torch.where(pidx < index.pn, index.pkeys, sent), addk])
+        mv = torch.cat([pvals2, addv])
+        mt = torch.cat([ptomb2,
+                        torch.zeros((B,), dtype=torch.bool, device=dev)])
+        order = torch.argsort(mk, stable=True)
+        mk, mv, mt = mk[order], mv[order], mt[order]
+        pn_new = index.pn + new_ins.sum(dtype=_I32)
+        pn2 = pn_new.clamp_max(PC)
+        overflow2 = index.overflow | (pn_new > PC)
 
     n_upd = index.n_updates + apply_w.sum(dtype=_I32)
     new_index = PIIndex(

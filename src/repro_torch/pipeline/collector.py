@@ -49,6 +49,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.batch import RANGE, SEARCH
 from repro_torch.kernels.pi_search import sentinel_for
 
@@ -339,6 +340,10 @@ class Collector:
         Times must be nondecreasing (arrival order); all arrays are 1-D
         of one shared length.
         """
+        with tracing.span(tracing.ADMIT):
+            return self._offer_many(t, ops, keys, vals, qids, keys2)
+
+    def _offer_many(self, t, ops, keys, vals, qids, keys2):
         t = np.ascontiguousarray(t, np.float64)
         ops = np.ascontiguousarray(ops, np.int32)
         keys = np.ascontiguousarray(keys, np.dtype(self.cfg.key_dtype))
@@ -388,7 +393,7 @@ class Collector:
         # chunk's first arrival — seal exactly as the scalar loop's
         # ``take(t[start])`` would, and let the next iteration reopen
         if cur >= self._batch:
-            sealed.append(self.take(float(t[start])))
+            sealed.append(self._take(float(t[start])))
             return start
         if self._t_open is None:
             t_open = float(t[start])
@@ -397,7 +402,7 @@ class Collector:
             t_open = self._t_open
             lo = start
             if cur and float(t[start]) - t_open >= self._deadline:
-                sealed.append(self.take(float(t[start])))
+                sealed.append(self._take(float(t[start])))
                 return start
         n = t.shape[0]
         # cap the candidate segment: a window admits at most batch-cur new
@@ -424,8 +429,9 @@ class Collector:
         is_r = o == RANGE
         is_w = (o != SEARCH) & ~is_r
         if self._coalesce:
-            newslot, slots, ckeys, cslots, rpairs, rslots = \
-                self._coalesce_chunk(k, k2, is_w, is_r, cur)
+            with tracing.span(tracing.ADMIT_COALESCE):
+                newslot, slots, ckeys, cslots, rpairs, rslots = \
+                    self._coalesce_chunk(k, k2, is_w, is_r, cur)
         else:
             newslot = np.ones(m, bool)
             slots = cur + np.arange(m, dtype=np.int64)
@@ -656,6 +662,10 @@ class Collector:
         ``trigger`` records why the window closed — size, deadline, or an
         explicit flush — so metrics can attribute short batches.
         """
+        with tracing.span(tracing.ADMIT):
+            return self._take(now)
+
+    def _take(self, now: Optional[float]) -> Optional[Window]:
         if not self._n_arr:
             return None
         if self._n >= self._batch:
@@ -678,23 +688,25 @@ class Collector:
 
     def _seal(self, trigger: str) -> Window:
         """Pad the slot buffers, concatenate arrival segments, hand off."""
-        n = self._n
-        ops, keys, vals = self._buf_ops, self._buf_keys, self._buf_vals
-        keys2 = self._buf_keys2
-        ops[n:] = SEARCH
-        keys[n:] = self._sent
-        keys2[n:] = 0
-        vals[n:] = 0
-        self._flush_tail()
-        qids: List[int] = []
-        for seg in self._seg_qids:
-            qids.extend(seg.tolist() if isinstance(seg, np.ndarray) else seg)
-        win = Window(ops=ops, keys=keys, vals=vals, occupancy=n,
-                     qids=qids,
-                     slots=np.concatenate(self._seg_slots),
-                     t_open=float(self._t_open),
-                     t_enq=np.concatenate(self._seg_tenq),
-                     trigger=trigger, keys2=keys2)
+        with tracing.span(tracing.ADMIT_SEAL):
+            n = self._n
+            ops, keys, vals = self._buf_ops, self._buf_keys, self._buf_vals
+            keys2 = self._buf_keys2
+            ops[n:] = SEARCH
+            keys[n:] = self._sent
+            keys2[n:] = 0
+            vals[n:] = 0
+            self._flush_tail()
+            qids: List[int] = []
+            for seg in self._seg_qids:
+                qids.extend(seg.tolist() if isinstance(seg, np.ndarray)
+                            else seg)
+            win = Window(ops=ops, keys=keys, vals=vals, occupancy=n,
+                         qids=qids,
+                         slots=np.concatenate(self._seg_slots),
+                         t_open=float(self._t_open),
+                         t_enq=np.concatenate(self._seg_tenq),
+                         trigger=trigger, keys2=keys2)
         self._reset()
         if self.on_seal is not None:
             self.on_seal(win)

@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import distributed as dist
 from repro_torch.core import index as pi
 from repro_torch.core.batch import RANGE, SEARCH
@@ -128,7 +129,9 @@ def step_single(index: pi.PIIndex, ops, keys, vals):
     incr = False
     # the one host read of a window: which rebuild, if any (ROADMAP
     # performance note 3; a CUDA graph of the window would remove it)
-    if bool(due):  # pilint: disable=PI002 — ROADMAP note 3
+    with tracing.span(tracing.WAIT_REBUILD_CHECK):
+        rebuild_due = bool(due)  # pilint: disable=PI002 — ROADMAP note 3
+    if rebuild_due:
         new_index, incr = pi.rebuild_tier(new_index)
     incr = torch.tensor(incr, device=new_index.device)
     return new_index, found, val, ovf, due, incr, pn
@@ -376,6 +379,10 @@ class Dispatcher:
         Raises ``ReadOnlyModeError`` for a window with writes while the
         breaker is read-only (before anything runs).
         """
+        with tracing.span(tracing.SUBMIT):
+            return self._submit(window)
+
+    def _submit(self, window: Window) -> List[WindowResult]:
         self._check_poisoned()
         if self._read_only_active() and self._window_has_writes(window):
             if self.metrics is not None:
@@ -392,9 +399,10 @@ class Dispatcher:
         if self._window_has_ranges(window):
             ranges = execute_ranges_sharded if self._sharded \
                 else execute_ranges
-            rcnt, rsum = ranges(
-                self._index, *self._tensors(window.ops, window.keys,
-                                            window.keys2), self.max_span)
+            with tracing.span(tracing.SUBMIT_RANGES):
+                rcnt, rsum = ranges(
+                    self._index, *self._tensors(window.ops, window.keys,
+                                                window.keys2), self.max_span)
         ops, keys = self._point_view(window)
         found, val, ovf, rebuilt, incr, dropped, pn = self._step(
             *self._tensors(ops, keys, window.vals))
@@ -586,6 +594,16 @@ class Dispatcher:
         return res
 
     def _retire(self, infl: _InFlight) -> WindowResult:
+        with tracing.span(tracing.RETIRE):
+            with tracing.span(tracing.WAIT_RETIRE):
+                res = self._read_back(infl)
+            if self.metrics is not None:
+                self.metrics.on_retire(res)
+            return res
+
+    def _read_back(self, infl: _InFlight) -> WindowResult:
+        """A window's results read back from the card, where the host
+        waits for its execute; raises on a lost insert or query."""
         found = infl.found.cpu().numpy()   # waits for the card here
         val = infl.val.cpu().numpy()
         if self.check_overflow and bool(infl.overflow):
@@ -599,13 +617,10 @@ class Dispatcher:
                 f"fence routing dropped {int(infl.dropped)} queries: a "
                 f"shard's send bucket overflowed.  Raise capacity_factor "
                 f"({self.capacity_factor}) or rebalance the fences.")
-        res = WindowResult(
+        return WindowResult(
             window=infl.window, found=found, val=val,
             t_retired=self._clock(), rebuilt=bool(infl.rebuilt),
             rebuilt_incremental=infl.incr is not None and bool(infl.incr),
             pending_fill=int(infl.pn) / self._pending_capacity,
             rcnt=infl.rcnt.cpu().numpy() if infl.rcnt is not None else None,
             rsum=infl.rsum.cpu().numpy() if infl.rsum is not None else None)
-        if self.metrics is not None:
-            self.metrics.on_retire(res)
-        return res
