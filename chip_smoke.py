@@ -897,8 +897,9 @@ def ycsb_e_lanes(ycfg, keys_np, seed):
 
 def check_range_kernel(idx, lo, hi, tag, iters):
     """pi_range against its plain version at these shapes, bit for bit;
-    device times of the kernel, of the plain version and of building the
-    tables; the bound."""
+    device times of the kernel, of the plain version and of the tables a
+    call builds (the keys-only ones come from ``KEY_TABLES``); the
+    bound."""
     from repro_torch.core.engine import range_tables
     from repro_torch.kernels import pi_range as KR
     F = idx.config.fanout
@@ -942,8 +943,9 @@ def check_range_kernel(idx, lo, hi, tag, iters):
         f"max_abs_err {err}; {nbytes} B touched")
     log(f"[kernels:{tag}] pi_range: device {t['ms']:.6f} ms at "
         f"{KR.RANGE_GROUP} lanes a query (per call with the host's launch "
-        f"{t['call_ms']:.6f} ms) | rank, dense2slot and prefix tables: "
-        f"device {t['tables_ms']:.6f} ms | plain version device "
+        f"{t['call_ms']:.6f} ms) | a call's live, plive and prefix "
+        f"tables (rank, dense2slot held in KEY_TABLES): device "
+        f"{t['tables_ms']:.6f} ms | plain version device "
         f"{t['plain_ms']:.6f} ms | bound {rb[0]:.6f} ms by {rb[1]}")
     assert int(cnt.sum()) > 0, "ranges too narrow"
     return dict(t, err=err, bound=rb, budget=budget)

@@ -27,7 +27,9 @@ kernel launch.  The backends agree bit for bit.  Liveness (tombstones,
 
 ``range_agg`` aggregates ranges: ``cuda`` runs ``kernels.pi_range`` (one
 launch: descent + occupied-rank walk + pending pass), ``torch`` computes
-the same values in stock PyTorch ops.
+the same values in stock PyTorch ops.  Both read the tables of
+``range_tables``, whose C-wide rank tables ``KEY_TABLES`` builds once per
+storage key array.
 
 ``sort_queries`` is the batch sort of ``execute`` (the paper's Def. 3):
 ``cuda`` runs ``bitonic_argsort`` once (the kernel pads the batch and
@@ -38,11 +40,15 @@ Pallas kernel.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import threading
+import weakref
 
 import torch
 
+from repro_torch.analysis.runtime import launch_guard
 from repro_torch.core.batch import sort_queries
 from repro_torch.kernels.bitonic_sort import bitonic_argsort
 from repro_torch.kernels.pi_range import pending_prefix, pi_range, wrap_i32
@@ -222,21 +228,89 @@ def range_tables(index):
 
     ``rank[slot]`` is the occupied rank (occupied slots at or before it,
     minus one); ``dense2slot[r]`` the slot of the r-th occupied key, C past
-    the end; tombstoned slots keep their key, hence are occupied.  The
-    scatter lands dropped rows on a spare row past the end, which is cut
-    off (the JAX package's ``.at[].set(mode="drop")``).
+    the end; tombstoned slots keep their key, hence are occupied.  Both
+    depend on ``keys`` alone, which changes only at build and rebuild, so
+    they come from ``KEY_TABLES``, built once per key array; ``live``
+    (``tomb``) and ``plive`` (``pn``, ``ptomb``) are computed each call.
+    ``rank`` and ``dense2slot`` are shared by every caller: read only.
     """
-    C = index.keys.shape[0]
-    dev = index.device
-    occ = index.keys != sentinel_for(index.keys.dtype)
+    occ, rank, dense2slot = KEY_TABLES.get(index.keys)
+    live = (occ > index.tomb).to(torch.int32)   # occupied, not tombstoned
+    pidx = torch.arange(index.pkeys.shape[0], device=index.device)
+    plive = (pidx < index.pn) & ~index.ptomb
+    return live, rank, dense2slot, plive.to(torch.int32)
+
+
+def _build_key_tables(keys: torch.Tensor):
+    """``(occ, rank, dense2slot)`` of one key array.  The scatter lands
+    dropped rows on a spare row past the end, which is cut off (the JAX
+    package's ``.at[].set(mode="drop")``)."""
+    _TABLE_BUILDS.bump()
+    C = keys.shape[0]
+    dev = keys.device
+    occ = keys != sentinel_for(keys.dtype)
     rank = torch.cumsum(occ, 0, dtype=torch.int32) - 1
     dense2slot = torch.full((C + 1,), C, dtype=torch.int32, device=dev)
     dense2slot[torch.where(occ, rank, C).long()] = torch.arange(
         C, dtype=torch.int32, device=dev)
-    pidx = torch.arange(index.pkeys.shape[0], device=dev)
-    plive = (pidx < index.pn) & ~index.ptomb
-    return ((occ & ~index.tomb).to(torch.int32), rank, dense2slot[:C],
-            plive.to(torch.int32))
+    return occ, rank, dense2slot[:C]
+
+
+# Bumped once per build of a key array's range tables, on either backend:
+# once per miss of ``KEY_TABLES``.  Over a run that rebuilds nothing, one
+# build serves every range-bearing window (``launch_guard("pipeline.
+# ranges")``): the hit share is 1 - builds / range launches.
+_TABLE_BUILDS = launch_guard("core.range_tables")
+
+
+class KeyTables:
+    """The keys-only range tables of each key array, held outside the
+    index: built on the first ``get`` and returned again until the array
+    changes.
+
+    An entry belongs to one array: its storage (address, offset, length,
+    stride, dtype, device) and the value of its version counter, which
+    every in-place write to the array or to a view of its storage bumps;
+    a ``get`` after such a write builds the tables anew.  A write that
+    bypasses the counter (through ``.data``, a numpy alias or a raw
+    pointer) is not seen.  An entry dies with its storage (a finalizer on
+    it), so no later allocation at the same address can find it.  At most
+    ``MAX_ENTRIES`` live, the least recently used dropped first; a single
+    shard takes one, stacked shards one for each shard's view of the
+    stacked keys (the views share one counter, so a write to any shard
+    rebuilds them all).  No host sync.
+    """
+
+    MAX_ENTRIES = 32
+
+    def __init__(self):
+        # slot -> [version, tables, finalizer], least recently used first
+        self._entries = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, keys: torch.Tensor):
+        """``(occ, rank, dense2slot)`` of ``keys`` (bool, int32, int32)."""
+        storage = keys.untyped_storage()
+        slot = (storage.data_ptr(), keys.storage_offset(), keys.shape[0],
+                keys.stride(0), keys.dtype, keys.device)
+        version = keys._version
+        with self._lock:
+            entry = self._entries.get(slot)
+            if entry is None:
+                entry = self._entries[slot] = [None, None, weakref.finalize(
+                    storage, self._entries.pop, slot, None)]
+                while len(self._entries) > self.MAX_ENTRIES:
+                    self._entries.popitem(last=False)[1][2].detach()
+            self._entries.move_to_end(slot)
+            if entry[0] != version:
+                entry[0], entry[1] = version, _build_key_tables(keys)
+            return entry[1]
+
+
+KEY_TABLES = KeyTables()
 
 
 @functools.lru_cache(maxsize=None)

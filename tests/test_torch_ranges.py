@@ -12,8 +12,13 @@ pending search, must count what ``torch.searchsorted`` counts and give
 the JAX kernel's pending aggregate at each group size the kernel can be
 built with.  The CUDA kernel itself runs only on a card:
 ``test_pi_range_matches_plain_on_card``, which needs neither JAX nor the
-JAX package (``python -m pytest -m gpu``).
+JAX package (``python -m pytest -m gpu``).  ``range_tables``' keys-only
+tables come from ``KEY_TABLES``, built once per storage key array: held
+to freshly built tables and to the ``core.range_tables`` build count
+across windows, rebuilds, recovery, in-place writes, shards, garbage
+collection and a served YCSB-E stream, and on the card.
 """
+import gc
 import re
 from pathlib import Path
 
@@ -23,11 +28,11 @@ import torch
 
 from repro_torch.analysis import launch_guard
 from repro_torch.core import index as tpi
-from repro_torch.core.batch import INSERT, RANGE, SEARCH
-from repro_torch.core.engine import range_tables
+from repro_torch.core.batch import DELETE, INSERT, RANGE, SEARCH
+from repro_torch.core.engine import KEY_TABLES, range_tables
 from repro_torch.kernels import pi_range as KR
-from repro_torch.kernels.pi_search import _lower_bound
-from repro_torch.pipeline import execute_ranges
+from repro_torch.kernels.pi_search import _lower_bound, sentinel_for
+from repro_torch.pipeline import execute_ranges, execute_ranges_sharded
 
 I32 = np.iinfo(np.int32)
 GROUPS = (8, 16, 32)   # the group sizes csrc/pi_range.cu can be built with
@@ -342,3 +347,246 @@ def test_pi_range_matches_plain_on_card(rng):
             launch_guard("pi_range").expect(base, 1, "one pi_range call")
     with pytest.raises(TypeError):
         KR.pi_range(idx.keys.double(), *args[1:], fanout=fanout)
+
+
+# ---------------------------------------------------------------------------
+# the keys-only tables: built once per storage key array (KEY_TABLES)
+# ---------------------------------------------------------------------------
+
+BUILDS = launch_guard("core.range_tables")
+
+
+def fresh_tables(index):
+    """``range_tables`` as it is written out, built from nothing: the
+    tables the memo must equal bit for bit."""
+    C = index.keys.shape[0]
+    occ = index.keys != sentinel_for(index.keys.dtype)
+    rank = torch.cumsum(occ, 0, dtype=torch.int32) - 1
+    d2s = torch.full((C + 1,), C, dtype=torch.int32, device=index.device)
+    d2s[torch.where(occ, rank, C).long()] = torch.arange(
+        C, dtype=torch.int32, device=index.device)
+    pidx = torch.arange(index.pkeys.shape[0], device=index.device)
+    plive = (pidx < index.pn) & ~index.ptomb
+    return ((occ & ~index.tomb).to(torch.int32), rank, d2s[:C],
+            plive.to(torch.int32))
+
+
+def assert_tables_fresh(index, tag=""):
+    got, want = range_tables(index), fresh_tables(index)
+    for name, g, w in zip(("live", "rank", "dense2slot", "plive"), got,
+                          want):
+        assert g.dtype == w.dtype == torch.int32, (tag, name)
+        assert torch.equal(g, w), (tag, name)
+
+
+def churn_window(rng, keys, B, span):
+    """One window of inserts (new keys and updates of old ones), deletes
+    and searches."""
+    ops = rng.choice([SEARCH, INSERT, DELETE], B, p=[0.3, 0.5, 0.2])
+    k = np.where(rng.random(B) < 0.5, rng.choice(keys, B),
+                 rng.integers(0, span, B))
+    return (t(ops.astype(np.int32)), t(k.astype(np.int32)),
+            t(rng.integers(-1000, 1000, B).astype(np.int32)))
+
+
+def ref_range(ref, lo, hi):
+    """(count, int32-wrapped sum) of each range in a ``RefIndex``."""
+    out = [(len(r), sum(v for _, v in r)) for r in
+           (ref.range(a, b) for a, b in zip(lo.tolist(), hi.tolist()))]
+    return (np.array([c for c, _ in out], np.int32),
+            KR.wrap_i32(torch.tensor([s for _, s in out])).numpy())
+
+
+@pytest.mark.parametrize("key_dtype", ["int32", "float32"])
+def test_key_tables_built_once_across_windows(rng, key_dtype):
+    """Through windows of inserts, updates and deletes (the storage keys
+    untouched, tombstones and the pending buffer changing), the memo's
+    tables equal fresh ones every window, and one build serves them all."""
+    cfg = tpi.PIConfig(capacity=1024, pending_capacity=256, fanout=4,
+                       seg_width=16, key_dtype=key_dtype)
+    keys = rng.choice(20000, 300, replace=False)
+    idx = tpi.build(cfg, keys.astype(cfg.key_dtype),
+                    np.arange(300, dtype=np.int32), device="cpu")
+    base = BUILDS.count()
+    for w in range(6):
+        assert_tables_fresh(idx, w)
+        idx, _ = tpi.execute(idx, *churn_window(rng, keys, 48, 20000))
+    assert idx.tomb.any() and int(idx.pn) > 0
+    assert_tables_fresh(idx, "last")
+    BUILDS.expect(base, 1, "six windows on one key array")
+
+
+@pytest.mark.parametrize("how", ["incremental", "repack", "recover"])
+def test_key_tables_rebuilt_for_a_new_key_array(rng, jx, tmp_path, how):
+    """A rebuild of either tier and a recovery each give a new key array
+    and one more build; the range answers after it equal the JAX
+    package's and ``RefIndex``'s."""
+    from repro_torch import pipeline as tp
+    from repro_torch.core.ref import RefIndex
+    jcfg, tcfg = jx["parity"].configs(
+        backend="pallas-interpret", capacity=1024, pending_capacity=128)
+    keys = rng.choice(100_000, 400, replace=False).astype(np.int32)
+    vals = rng.integers(-1000, 1000, 400).astype(np.int32)
+    idx = tpi.build(tcfg, keys, vals, device="cpu")
+    ref = RefIndex.build(keys, vals)
+    # new keys clustered (a few dirty segments: the incremental tier) or
+    # spread; deletes and updates of loaded keys
+    newk = (60_000 + np.arange(32) * 3) if how == "incremental" else \
+        rng.choice(100_000, 100)
+    newk = np.setdiff1d(newk, keys).astype(np.int32)
+    old = rng.choice(keys, 40, replace=False)
+    for ops, k in ((INSERT, newk), (DELETE, old[:10]), (INSERT, old[10:])):
+        w = (np.full(k.size, ops, np.int32), k.astype(np.int32),
+             rng.integers(-1000, 1000, k.size).astype(np.int32))
+        idx, _ = tpi.execute(idx, *map(t, w))
+        ref.execute(*w)
+    range_tables(idx)
+    base = BUILDS.count()
+    before = idx.keys
+    if how == "recover":
+        d = str(tmp_path / "dur")
+        tp.Durability(d, idx).close()        # its step-0 snapshot
+        idx, _ = tp.recover(d, device="cpu")
+    elif how == "repack":
+        idx = tpi.repack(idx)
+    else:
+        idx, incr = tpi.rebuild_tier(idx)
+        assert incr
+    assert idx.keys is not before
+    lo, hi = _bounds(rng, keys, 97, 5000)
+    got = tpi.range_agg(idx, t(lo), t(hi), 1024)
+    BUILDS.expect(base, 1, how)
+    assert_tables_fresh(idx, how)
+    BUILDS.expect(base, 1, f"{how}, again")
+    want = jx["pi"].range_agg(jx["parity"].to_jax(idx, jcfg),
+                              jx["jnp"].asarray(lo), jx["jnp"].asarray(hi),
+                              1024)
+    assert int(got[0].max()) > 0
+    for g, w, r in zip(got, want, ref_range(ref, lo, hi)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), r)
+
+
+@pytest.mark.parametrize("write", ["whole", "view"])
+def test_key_tables_rebuilt_after_an_in_place_write(rng, write):
+    """An in-place write to ``keys`` (or through a view of its storage)
+    bumps its version counter: the next call builds the tables anew."""
+    cfg = tpi.PIConfig(capacity=256, pending_capacity=32, fanout=4)
+    idx = tpi.build(cfg, np.arange(0, 500, 5, dtype=np.int32),
+                    np.arange(100, dtype=np.int32), device="cpu")
+    assert_tables_fresh(idx)
+    base = BUILDS.count()
+    range_tables(idx)
+    BUILDS.expect(base, 0, "a second call")
+    sent = sentinel_for(idx.keys.dtype)
+    target = idx.keys if write == "whole" else idx.keys[90:]
+    target[-1:] = sent - 1               # one more occupied slot
+    assert_tables_fresh(idx, write)
+    BUILDS.expect(base, 1, f"a write to {write}")
+
+
+def test_key_tables_once_a_shard_across_windows(rng):
+    """``execute_ranges_sharded`` builds each shard's tables once across
+    windows of point writes between its calls, and its sums equal the
+    live pairs' of the pre-window state."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.ref import RefIndex
+    S = 4
+    cfg = tpi.PIConfig(capacity=512, pending_capacity=64, fanout=4,
+                       seg_width=16)
+    keys = np.sort(rng.choice(40000, 600, replace=False)).astype(np.int32)
+    vals = rng.integers(-1000, 1000, 600).astype(np.int32)
+    state = tdist.build_sharded(cfg, S, keys, vals, device="cpu")
+    mesh = tdist.make_mesh((S,), ("data",), device="cpu")
+    base = BUILDS.count()
+    for w in range(4):
+        ref = RefIndex.build(*tdist.collect_pairs(state))
+        lo, hi = _bounds(rng, keys, 64, 2000)
+        ops = np.full(64, RANGE, np.int32)
+        got = execute_ranges_sharded(state, ops, lo, hi, 1024)
+        for g, r in zip(got, ref_range(ref, lo, hi)):
+            np.testing.assert_array_equal(g.numpy(), r, err_msg=str(w))
+        state, _, _, _ = tdist.execute_sharded(
+            state, mesh, *churn_window(rng, keys, 64, 40000))
+    assert int(state.shards.pn.sum()) > 0
+    BUILDS.expect(base, S, "four windows, S = 4")
+
+
+def test_key_tables_entry_dies_with_its_keys():
+    """Dropping the index (and every view of its keys) frees its entry."""
+    cfg = tpi.PIConfig(capacity=256, pending_capacity=32, fanout=4)
+    idx = tpi.build(cfg, np.arange(0, 500, 5, dtype=np.int32),
+                    np.arange(100, dtype=np.int32), device="cpu")
+    gc.collect()
+    before = len(KEY_TABLES)
+    rank = range_tables(idx)[1]
+    assert len(KEY_TABLES) == before + 1
+    del idx
+    gc.collect()
+    assert len(KEY_TABLES) == before
+    assert rank.shape == (256,)          # what a caller holds stays its own
+
+
+def test_key_tables_hold_at_most_max_entries():
+    """More live key arrays than ``MAX_ENTRIES`` keep that many entries,
+    the least recently used dropped: the first array's tables are built
+    again, the last one's are not."""
+    cfg = tpi.PIConfig(capacity=64, pending_capacity=8, fanout=4)
+    idxs = [tpi.build(cfg, np.arange(i, i + 40, dtype=np.int32),
+                      np.arange(40, dtype=np.int32), device="cpu")
+            for i in range(KEY_TABLES.MAX_ENTRIES + 4)]
+    for idx in idxs:
+        range_tables(idx)
+    assert len(KEY_TABLES) == KEY_TABLES.MAX_ENTRIES
+    base = BUILDS.count()
+    range_tables(idxs[-1])
+    BUILDS.expect(base, 0, "the most recent array")
+    assert_tables_fresh(idxs[0], "evicted")
+    BUILDS.expect(base, 1, "an evicted array")
+
+
+def test_served_ycsb_e_builds_once(monkeypatch):
+    """A served YCSB-E stream at the benchmark's small size, through
+    ``Collector`` and ``Dispatcher``: one build for each key array the
+    ranges saw (one unless a rebuild fell in the run) and one
+    ``pipeline.ranges`` launch a range-bearing window; answers correct."""
+    from pibench import smallcells
+    from repro_torch.pipeline import Dispatcher
+    seen, n_range = [], [0]
+    submit = Dispatcher.submit
+
+    def counting(self, window):
+        if (np.asarray(window.ops[:window.occupancy]) == RANGE).any():
+            n_range[0] += 1
+            if not any(self.index.keys is k for k in seen):
+                seen.append(self.index.keys)
+        return submit(self, window)
+
+    monkeypatch.setattr(Dispatcher, "submit", counting)
+    launches = launch_guard("pipeline.ranges")
+    b0, r0 = BUILDS.count(), launches.count()
+    out = smallcells.run_small(smallcells.small_cell("pi1.ycsb-e"))
+    assert out["correct"], out["checks"]
+    assert n_range[0] > 16 and len(seen) >= 1
+    BUILDS.expect(b0, len(seen), "a served YCSB-E run")
+    launches.expect(r0, n_range[0], "a served YCSB-E run")
+
+
+@pytest.mark.gpu
+def test_key_tables_built_once_on_card(rng):
+    """Over 8 windows on the card the memo's tables equal fresh ones bit
+    for bit and are built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the tables are held on one here")
+    cfg = tpi.PIConfig(capacity=1 << 16, pending_capacity=1 << 12, fanout=8)
+    keys = rng.choice(1 << 22, 1 << 15, replace=False)
+    idx = tpi.build(cfg, keys.astype(np.int32),
+                    np.arange(1 << 15, dtype=np.int32), device="cuda")
+    base = BUILDS.count()
+    for w in range(8):
+        assert_tables_fresh(idx, w)
+        idx, _ = tpi.execute(idx, *(x.cuda() for x in churn_window(
+            rng, keys, 1024, 1 << 22)))
+    torch.cuda.synchronize()
+    assert bool(idx.tomb.any()) and int(idx.pn) > 0
+    BUILDS.expect(base, 1, "eight windows on the card")
